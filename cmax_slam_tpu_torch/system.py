@@ -1,0 +1,149 @@
+"""System orchestration; counterpart of cmax_slam_tpu/system.py.
+
+Rebuild of CMaxSLAM (src/cmax_slam.cpp:14-161) without ROS: construction
+precomputes the bearing LUT from the calibration and wires the front-end and
+back-end over one shared EventStore. Pushing events advances the front-end;
+every new angular-velocity estimate feeds the back-end, which solves each
+window as soon as it is complete.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, List, Optional
+
+import numpy as np
+
+from .backend import Backend, WindowResult
+from .calib import CameraCalibration, bearing_lut
+from .config import SystemConfig
+from .frontend import AngVelEstimate, Frontend
+from .io.events import EventStore
+from .ops.warp_local import CameraParams
+from .utils.device import resolve_device
+from .utils.metrics import Metrics
+
+
+class CMaxSLAM:
+    def __init__(self, calib: CameraCalibration, cfg: Optional[SystemConfig] = None, *,
+                 device, run_backend: bool = True):
+        """``device``: where every solve and the maps live ('cpu' or 'cuda').
+        It is required; 'cuda' without a usable card raises."""
+        self.device = resolve_device(device)
+        self.cfg = cfg if cfg is not None else SystemConfig()
+        self.calib = calib
+        self.metrics = Metrics()
+
+        lut = bearing_lut(calib)
+        K = calib.K
+        cam = CameraParams(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                           cy=float(K[1, 2]), width=calib.width, height=calib.height)
+        self.store = EventStore()
+        self.frontend = Frontend(cam, lut, self.cfg.frontend, device=self.device,
+                                 store=self.store, metrics=self.metrics)
+        self.backend = None
+        if run_backend:
+            self.backend = Backend(
+                calib.width, calib.height, lut, self.cfg.backend, self.store,
+                device=self.device,
+                frontend_sample_rate=self.cfg.frontend_event_sample_rate,
+                metrics=self.metrics,
+            )
+            self.backend.retain_from_fn = self.frontend.min_needed_abs_index
+        self._decim_phase = 0
+        # Raw (pre-decimation) events consumed; checkpointed so a resumed
+        # replay knows how far into the recording to skip.
+        self._raw_count = 0
+
+    # ------------------------------------------------------------------
+    def push_events(self, xs, ys, ts, ps) -> List[AngVelEstimate]:
+        """Feed a chunk of raw sensor events (eventsCallback,
+        src/cmax_slam.cpp:147-161): decimate by frontend_event_sample_rate,
+        advance the front-end, hand fresh ang-vels to the back-end and run
+        every window that became complete."""
+        rate = self.cfg.frontend_event_sample_rate
+        self._raw_count += len(ts)
+        if rate > 1:
+            # phase-continuous every-rate-th selection across chunks
+            n = len(ts)
+            sel = (np.arange(n) + self._decim_phase) % rate == 0
+            self._decim_phase = (self._decim_phase + n) % rate
+            xs, ys, ts, ps = xs[sel], ys[sel], ts[sel], ps[sel]
+
+        estimates = self.frontend.push_events(xs, ys, ts, ps)
+        if self.backend is not None:
+            for est in estimates:
+                self.backend.push_ang_vel(est.t, est)
+            while self.backend.ready():
+                self.backend.step()
+        return estimates
+
+    def run(self, chunks: Iterable) -> None:
+        """Drive the full pipeline from an iterator of event chunks."""
+        for xs, ys, ts, ps in chunks:
+            self.push_events(xs, ys, ts, ps)
+
+    def flush(self) -> None:
+        """Join in-flight work. Every window is solved synchronously inside
+        push_events, so nothing is in flight; kept so that callers written
+        for the JAX system run unchanged."""
+
+    # ------------------------------------------------------------------
+    @property
+    def ang_vel_log(self) -> np.ndarray:
+        """All front-end estimates as (T, 4) array [t, wx, wy, wz] (rad/s)."""
+        es = self.frontend.estimates
+        if not es:
+            return np.zeros((0, 4))
+        return np.array([[e.t, *e.omega] for e in es])
+
+    @property
+    def trajectory_log(self):
+        """Back-end refined absolute poses as [(t, quat_wxyz)]."""
+        return [] if self.backend is None else self.backend.trajectory_log
+
+    def window_results(self) -> List[WindowResult]:
+        return [] if self.backend is None else self.backend.results
+
+    @property
+    def raw_count(self) -> int:
+        """Raw (pre-decimation) events consumed so far."""
+        return self._raw_count
+
+    def save_checkpoint(self, path: str) -> None:
+        """Serialize the full system state with the keys of the JAX
+        package's CMaxSLAM.save_checkpoint, so either system can resume the
+        other's checkpoint: trajectory knots, global map, window cursors,
+        integrator anchors, the ang-vel inbox, the front-end packetizer phase,
+        the resident EventStore window and the raw stream position."""
+        state = {}
+        if self.backend is not None:
+            state.update(self.backend.checkpoint())
+        state.update(self.frontend.checkpoint())
+        st = self.store
+        state.update(
+            store_base=st.base, store_xs=st._xs, store_ys=st._ys,
+            store_ts=st._ts, store_ps=st._ps, store_t_last=st._t_last,
+            raw_count=self._raw_count, decim_phase=self._decim_phase,
+        )
+        state["ang_vel_log"] = self.ang_vel_log
+        state["frontend_omega"] = self.frontend.omega
+        np.savez_compressed(path, **state)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore the full system state from a checkpoint written by either
+        system (see save_checkpoint). Construct with the same config and
+        calibration, load, then resume pushing the raw events after
+        ``raw_count``."""
+        with np.load(path) as d:
+            st = self.store
+            st._xs = np.asarray(d["store_xs"], np.int32)
+            st._ys = np.asarray(d["store_ys"], np.int32)
+            st._ts = np.asarray(d["store_ts"], np.float64)
+            st._ps = np.asarray(d["store_ps"], np.int8)
+            st.base = int(d["store_base"])
+            st._t_last = float(d["store_t_last"])
+            self.frontend.restore(d)
+            self._raw_count = int(d["raw_count"])
+            self._decim_phase = int(d["decim_phase"])
+            if self.backend is not None:
+                self.backend.restore(d)

@@ -1,0 +1,76 @@
+"""The port stands alone: importing every module of cmax_slam_tpu_torch pulls
+in neither jax nor the JAX package, and triggers no kernel build (the card's
+machine has no JAX, and CPU collection must never need nvcc). Also: every
+public constructor takes an explicit device and refuses a CUDA device it
+cannot use."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from cmax_slam_tpu_torch.calib import CameraCalibration
+from cmax_slam_tpu_torch.config import ijrr_config
+from cmax_slam_tpu_torch.system import CMaxSLAM
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = textwrap.dedent("""
+    import importlib, json, pkgutil, sys
+    preloaded = "jax" in sys.modules
+    # Any attempt to import JAX or the JAX package now raises ImportError.
+    for name in ("jax", "jaxlib", "cmax_slam_tpu"):
+        sys.modules[name] = None
+    import cmax_slam_tpu_torch
+    names = [m.name for m in pkgutil.walk_packages(cmax_slam_tpu_torch.__path__,
+                                                   "cmax_slam_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    from cmax_slam_tpu_torch.ops import cuda_iwe
+    build_dir = cuda_iwe.BUILD_DIR
+    built = sorted(p.name for p in build_dir.glob("*")) if build_dir.exists() else []
+    print(json.dumps({"preloaded": preloaded, "names": names, "lib": cuda_iwe._lib is not None,
+                      "launches": cuda_iwe.LAUNCHES, "built": built}))
+""")
+
+
+def test_importing_every_module_needs_no_jax_and_builds_nothing(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    build_dir = os.path.join(REPO, "cmax_slam_tpu_torch", "_build")
+    before = sorted(os.listdir(build_dir)) if os.path.isdir(build_dir) else []
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    import json
+
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    expected = {"cmax_slam_tpu_torch." + m for m in (
+        "backend", "calib", "config", "frontend", "lie", "spline", "system",
+        "ops.scatter", "ops.cuda_iwe", "ops.blur", "ops.contrast", "ops.warp_local",
+        "ops.optim", "ops.warp_pano", "io.events", "io.native", "io.synthetic",
+        "utils.metrics", "utils.evaluate", "utils.device")}
+    assert expected <= set(res["names"])
+    assert not res["preloaded"]
+    assert not res["lib"] and res["launches"] == {"fwd": 0, "bwd": 0}
+    assert res["built"] == before
+
+
+def test_device_is_explicit_and_checked():
+    K = np.array([[90.0, 0, 60], [0, 90.0, 45], [0, 0, 1]])
+    calib = CameraCalibration(width=120, height=90, K=K)
+    with pytest.raises(TypeError):
+        CMaxSLAM(calib, ijrr_config())  # no default device
+    with pytest.raises(ValueError):
+        CMaxSLAM(calib, ijrr_config(), device=None)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            CMaxSLAM(calib, ijrr_config(), device="cuda")
+    slam = CMaxSLAM(calib, ijrr_config(), device="cpu")
+    assert slam.backend.IG.device.type == "cpu"
+    assert slam.frontend.lut.device.type == "cpu"
