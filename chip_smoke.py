@@ -8,15 +8,23 @@ Phases, in order; any failure exits non-zero:
 2. build: compiles the vote kernels from csrc/iwe.cu with nvcc, prints the seconds;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main path's shapes (front-end rung sweep, back-end window on a crop,
-   old/new split on the full panorama), with dropped events, padding and
-   integer coordinates; prints the max error and both times;
+   old/new split on the full panorama) and at the kernel-alone headroom
+   shape (2^20 events on 240x180), with dropped events, padding and integer
+   coordinates; prints the max error and both times;
 4. system: CMaxSLAM on the stock ijrr preset, driven through push_events on a
    2.0 s synthetic 240x180 stream at 390k ev/s (make_stream), must keep its
    state on the card, run at least 15 BA windows through both kernels and
-   track the ground truth to < 0.3 deg RMS.
+   track the ground truth to < 0.3 deg RMS;
+5. cli: the same stream written to an IJRR 't x y p' text file and run
+   through ``cmax_slam_tpu_torch.cli.main`` on the stock ijrr preset with a
+   refine pass, IWE-pair and map dumps: all outputs written, every event
+   read back, >= 15 windows, both kernels launched (K1 also inside the IWE
+   renders), the TUM trajectory < 0.3 deg RMS; then a run cut at 1.0 s and
+   one resuming its final_state.npz must continue the packet grid.
 
 Before the last line it prints one JSON object with every kernel's route,
-source, launches on the main path, error and times; the last line is
+source, launches on each path (the system run of phase 4 and the CLI run of
+phase 5, each counted from 0), error and times; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor the JAX package.
 """
 
@@ -26,6 +34,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -34,12 +43,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Main-path vote shapes (tag: B images, N events, H x W, kernels checked):
 # the front-end rung sweep and value-and-grad, a back-end window's events on
-# a crop, the old/new split on the ijrr panorama.
+# a crop, the old/new split on the ijrr panorama; then the headroom shape,
+# the one at which the JAX package times its kernels alone
+# (examples/tpu_kernel_headroom.py), and the only one at which it runs the
+# "rows"/"mixed" VJP orientation that K2 also serves.
 SHAPES = (
     ("sweep", 9, 10_000, 180, 240, ("fwd",)),
     ("packet", 1, 10_000, 180, 240, ("fwd", "bwd")),
     ("crop", 1, 1 << 18, 384, 384, ("fwd", "bwd")),
     ("split", 2, 1 << 18, 512, 1024, ("fwd",)),
+    ("headroom", 1, 1 << 20, 180, 240, ("fwd", "bwd")),
 )
 # The shape whose times go into the JSON line, per kernel.
 REPORTED = {"fwd": "sweep", "bwd": "crop"}
@@ -90,8 +103,8 @@ def _time_ms(fn, reps: int = 20) -> float:
 
 
 def check_kernels(rng) -> dict:
-    """Phase 3. Returns per kernel {max_abs_err over all shapes, and ms,
-    plain_ms, shape at its REPORTED shape}."""
+    """Phase 3. Returns per kernel {max_abs_err over all shapes, ms, plain_ms
+    and shape at its REPORTED shape, and the same times at every shape}."""
     import torch
     from cmax_slam_tpu_torch.ops import cuda_iwe, scatter
 
@@ -136,6 +149,7 @@ def check_kernels(rng) -> dict:
             _log(f"vote_{k} {tag:6s} B={b} N={n} {H}x{W}: max_abs_err={err:.3e} "
                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err)
+            out[k].setdefault("by_shape", {})[tag] = {"ms": ms, "plain_ms": plain_ms}
             if REPORTED[k] == tag:
                 out[k].update(ms=ms, plain_ms=plain_ms, shape=f"{b}x{n}@{H}x{W}")
     return out
@@ -178,6 +192,13 @@ def make_stream(duration: float = 2.0):
     return ev, omega, calib
 
 
+def _reset_launches():
+    from cmax_slam_tpu_torch.ops import cuda_iwe
+
+    for k in cuda_iwe.LAUNCHES:
+        cuda_iwe.LAUNCHES[k] = 0
+
+
 def run_system(device: str = "cuda"):
     """Phase 4: the stock preset through the public entry points. Returns
     (launches during the run, {check: passed})."""
@@ -195,8 +216,7 @@ def run_system(device: str = "cuda"):
     _log(f"stream: {n} events over {duration} s ({time.perf_counter() - t0:.1f} s to generate)")
     slam = CMaxSLAM(calib, ijrr_config(), device=device)
 
-    for k in cuda_iwe.LAUNCHES:
-        cuda_iwe.LAUNCHES[k] = 0
+    _reset_launches()
     t0 = time.perf_counter()
     for i in range(0, n, chunk):
         slam.push_events(ev.xs[i:i + chunk], ev.ys[i:i + chunk], ev.ts[i:i + chunk],
@@ -232,6 +252,116 @@ def run_system(device: str = "cuda"):
     return launches, checks
 
 
+def run_cli(device: str = "cuda", duration: float = 2.0):
+    """Phase 5: the port's CLI on the make_stream recording written as an
+    IJRR text file, stock ijrr preset. Returns (launches during the full
+    run, {check: passed})."""
+    from cmax_slam_tpu_torch import cli, spline
+    from cmax_slam_tpu_torch.frontend import Frontend
+    from cmax_slam_tpu_torch.io.streams import iter_events
+    from cmax_slam_tpu_torch.ops import cuda_iwe
+    from cmax_slam_tpu_torch.utils.evaluate import read_tum_trajectory, rotation_rms_deg
+
+    ev, omega, calib = make_stream(duration)
+    n = len(ev.ts)
+    with tempfile.TemporaryDirectory(prefix="cmax_cli_") as tmp:
+        events = os.path.join(tmp, "events.txt")
+        t0 = time.perf_counter()
+        np.savetxt(events, np.column_stack([ev.ts, ev.xs, ev.ys, (ev.pols > 0).astype(int)]),
+                   fmt="%.9f %d %d %d")
+        K = calib.K
+        calib_txt = os.path.join(tmp, "calib.txt")
+        with open(calib_txt, "w") as f:
+            f.write(f"{K[0, 0]} {K[1, 1]} {K[0, 2]} {K[1, 2]} 0 0 0 0 0\n")
+        _log(f"cli: wrote {n} events to a text file in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        n_parsed = sum(len(c[2]) for c in iter_events(events, 1 << 16))
+        _log(f"cli: text parse alone {time.perf_counter() - t0:.2f} s for {n_parsed} events")
+
+        def argv(out, *extra):
+            return ["--device", device, "--events", events, "--calib", calib_txt,
+                    "--width", str(calib.width), "--height", str(calib.height),
+                    "--preset", "ijrr", "--out-dir", os.path.join(tmp, out), *extra]
+
+        # K1 launches inside the IWE-pair renders, counted apart.
+        render_launches = [0]
+        render = Frontend.render_iwe_pair
+
+        def counted_render(self, *a, **kw):
+            before = cuda_iwe.LAUNCHES["fwd"]
+            try:
+                return render(self, *a, **kw)
+            finally:
+                render_launches[0] += cuda_iwe.LAUNCHES["fwd"] - before
+
+        walls = {}
+        Frontend.render_iwe_pair = counted_render
+        try:
+            _reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main(argv("full", "--refine-passes", "1", "--save-iwe-every", "50",
+                               "--save-maps-every", "6"))
+            walls["full"] = time.perf_counter() - t0
+            launches = dict(cuda_iwe.LAUNCHES)
+        finally:
+            Frontend.render_iwe_pair = render
+        cut = n // 2
+        t0 = time.perf_counter()
+        rc_cut = cli.main(argv("cut", "--max-events", str(cut)))
+        walls["cut"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc_resume = cli.main(argv("resume", "--resume",
+                                  os.path.join(tmp, "cut", "final_state.npz")))
+        walls["resume"] = time.perf_counter() - t0
+
+        full = os.path.join(tmp, "full")
+        files = sorted(os.listdir(full))
+        stats = json.load(open(os.path.join(full, "stats.json")))
+        times, quats = read_tum_trajectory(os.path.join(full, "trajectory_tum.txt"))
+        q_gt = np.stack([spline._np_quat_exp(omega * t) for t in times])
+        rms, _ = rotation_rms_deg(times, q_gt, quats, "global")
+
+        def grid(out):
+            return np.atleast_2d(np.loadtxt(os.path.join(tmp, out, "angular_velocity.txt")))
+
+        av_full, av_cut, av_res = grid("full"), grid("cut"), grid("resume")
+        t_res, q_res = read_tum_trajectory(os.path.join(tmp, "resume", "trajectory_tum.txt"))
+        stats_res = json.load(open(os.path.join(tmp, "resume", "stats.json")))
+        timers = {k: round(v["total_s"], 3) for k, v in stats["metrics"]["timers"].items()}
+        _log(f"cli: full run rc {rc} wall {walls['full']:.2f} s "
+             f"(events_per_second {stats['events_per_second']:.0f}, "
+             f"{stats['events']} events, {stats['windows']} windows, "
+             f"{stats['ang_vel_estimates']} packets); trajectory_tum RMS {rms:.4f} deg; "
+             f"launches {launches}, K1 in IWE renders {render_launches[0]}; "
+             f"timers_s {json.dumps(timers)}; "
+             f"counters {json.dumps(stats['metrics']['counters'])}")
+        _log(f"cli: cut at {cut} events rc {rc_cut} wall {walls['cut']:.2f} s; resumed rc "
+             f"{rc_resume} wall {walls['resume']:.2f} s "
+             f"(events_per_second {stats_res['events_per_second']:.0f}), "
+             f"{len(av_cut)} + {len(av_res)} packets of {len(av_full)}")
+        outputs = ("angular_velocity.txt", "angular_velocity_deg.txt", "trajectory_tum.txt",
+                   "pano_map.png", "final_state.npz", "stats.json")
+        checks = {
+            "cli rc 0": rc == 0 and rc_cut == 0 and rc_resume == 0,
+            "six outputs": all(f in files for f in outputs),
+            "iwe and map dumps": (any(f.startswith("local_iwe_") for f in files)
+                                  and any(f.startswith("pano_map_") for f in files)),
+            "K1 in IWE renders": render_launches[0] > 0,
+            "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+            "every event read": stats["events"] == n_parsed == n,
+            ">= 15 windows": stats["windows"] >= 15,
+            "refine ran": stats["metrics"]["counters"].get("backend.refine_windows", 0) > 0,
+            "trajectory_tum RMS < 0.3 deg": rms < 0.3,
+            "resume continues the packet grid": (
+                len(av_cut) + len(av_res) == len(av_full)
+                and np.allclose(np.concatenate([av_cut[:, 0], av_res[:, 0]]), av_full[:, 0],
+                                atol=1e-9)),
+            "resumed run finite": (stats_res["events"] == n - cut and len(t_res) > 0
+                                   and bool(np.isfinite(q_res).all())),
+        }
+    return launches, checks
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "cmax_slam_tpu_torch", "csrc")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -260,15 +390,22 @@ def main() -> int:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"system checks failed: {failed}")
+    cli_launches, checks = run_cli()
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"cli checks failed: {failed}")
 
     src = "cmax_slam_tpu_torch/csrc/iwe.cu"
     replaces = {"fwd": "cmax_slam_tpu/ops/pallas_iwe.py:276 (_fwd_impl, pallas_call at :289)",
-                "bwd": "cmax_slam_tpu/ops/pallas_iwe.py:307 (_vjp_bwd, pallas_call at :350)"}
+                "bwd": "cmax_slam_tpu/ops/pallas_iwe.py:307 (_vjp_bwd, pallas_call at :350; "
+                       "kernel bodies _bwd_kernel_lanes :200 and _bwd_kernel :149)"}
     names = {"fwd": "vote_fwd", "bwd": "vote_bwd"}
     print(json.dumps({"kernels": [
         {"name": names[k], "route": "cuda", "source": src, "replaces": replaces[k],
-         "launches": launches[k], "max_abs_err": v["max_abs_err"], "ms": v["ms"],
-         "plain_ms": v["plain_ms"], "shape": v["shape"]}
+         "launches": launches[k], "launches_by_path": {"system": launches[k],
+                                                       "cli": cli_launches[k]},
+         "max_abs_err": v["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+         "shape": v["shape"], "by_shape": v["by_shape"]}
         for k, v in kernels.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

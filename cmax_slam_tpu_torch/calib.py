@@ -1,9 +1,9 @@
 """Camera models; counterpart of cmax_slam_tpu/calib.py.
 
-The pinhole calibration, undistortion and bearing LUT are a host-only numpy
-copy of the JAX package's (float64 on the host, shipped to the device as
-float32). The equirectangular panorama camera projects and lifts torch
-tensors and is differentiable.
+The pinhole calibration with its YAML/text loaders, undistortion and bearing
+LUT are a host-only numpy copy of the JAX package's (float64 on the host,
+shipped to the device as float32). The equirectangular panorama camera
+projects and lifts torch tensors and is differentiable.
 """
 
 from __future__ import annotations
@@ -30,6 +30,38 @@ class CameraCalibration:
     D: np.ndarray = field(default_factory=lambda: np.zeros(5))
     R: Optional[np.ndarray] = None
     P: Optional[np.ndarray] = None
+
+    @staticmethod
+    def from_yaml(path: str) -> "CameraCalibration":
+        """Load a ROS camera-calibration YAML (docs/DAVIS-00000254.yaml layout).
+        PyYAML is imported here, so the module imports without it."""
+        import yaml
+
+        with open(path) as f:
+            d = yaml.safe_load(f)
+        K = np.asarray(d["camera_matrix"]["data"], dtype=np.float64).reshape(3, 3)
+        D = np.asarray(
+            d.get("distortion_coefficients", {"data": [0] * 5})["data"], dtype=np.float64
+        ).reshape(-1)
+        R = None
+        if "rectification_matrix" in d:
+            R = np.asarray(d["rectification_matrix"]["data"], dtype=np.float64).reshape(3, 3)
+        P = None
+        if "projection_matrix" in d:
+            P = np.asarray(d["projection_matrix"]["data"], dtype=np.float64).reshape(3, 4)
+        return CameraCalibration(
+            width=int(d["image_width"]), height=int(d["image_height"]), K=K, D=D, R=R, P=P
+        )
+
+    @staticmethod
+    def from_txt(path: str, width: int, height: int) -> "CameraCalibration":
+        """Load the IJRR/ECD plain-text calib: 'fx fy cx cy k1 k2 p1 p2 k3'."""
+        vals = np.loadtxt(path).reshape(-1)
+        fx, fy, cx, cy = vals[:4]
+        D = np.zeros(5)
+        D[: len(vals) - 4] = vals[4:9] if len(vals) >= 9 else vals[4:]
+        K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], dtype=np.float64)
+        return CameraCalibration(width=width, height=height, K=K, D=D)
 
     @property
     def projection(self) -> np.ndarray:

@@ -76,7 +76,7 @@ class OptimOptions:
     secant_refine_evals: int = 4
     # Line-search bracket: "sequential" probes rungs one at a time;
     # "vector" evaluates every rung in one batched objective call; "grid"
-    # (JAX package only) replays the sequential choice over a batched grid.
+    # replays the sequential choice over a batched grid of rungs.
     ladder: str = "sequential"
     # Conjugate-direction formula: "fr" = Fletcher-Reeves (GSL
     # conjugate_fr, the reference's method); "pr" = Polak-Ribiere+.
@@ -142,8 +142,9 @@ class BackendConfig:
     # Bounded BA solve restarts per window; None = auto (1 for the cubic
     # back-end, 0 for linear).
     ba_solve_restarts: int | None = None
-    # Opt-in trust region on the per-window BA correction (JAX package
-    # only; the port raises for anything but None).
+    # Opt-in trust region on the per-window BA correction (radians): the
+    # solve stops at it and a window whose correction exceeds it is
+    # rejected (front-end knots kept, map not updated).
     max_ba_correction_rad: float | None = None
     # Quadratic prior weight toward the incoming knots, applied only during
     # offline refine sweeps (Backend.refine_pass).

@@ -62,8 +62,6 @@ class Frontend:
         store: Optional[EventStore] = None,
         metrics: Optional[Metrics] = None,
     ):
-        if cfg.coarse_to_fine:
-            raise NotImplementedError("coarse_to_fine is not ported yet")
         self.cam = cam
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -203,23 +201,55 @@ class Frontend:
             return est
 
         o = cfg.optim
-        with self.metrics.timer("frontend.solve"), torch.no_grad():
-            packet = self._packet(xs, ys, ts, float(np.float32(t_packet - self._t0)))
-            f, vg = warp_local.make_local_objective(
-                packet, self.cam, cfg.warp.blur_sigma, cfg.contrast_measure)
-            res = optim.minimize_fr_cg(
-                vg, self._omega.to(self.device), f_fn=f,
-                max_line_searches=o.max_line_searches, initial_step=o.initial_step,
+
+        def minimize(packet, sigma, x0, max_ls):
+            f, vg = warp_local.make_local_objective(packet, self.cam, sigma,
+                                                    cfg.contrast_measure)
+            return optim.minimize_fr_cg(
+                vg, x0.to(self.device), f_fn=f,
+                max_line_searches=max_ls, initial_step=o.initial_step,
                 line_search_tol=o.line_search_tol, grad_tol=o.grad_tol,
                 fun_tol=o.fun_tol, max_fevals_per_linesearch=o.max_fevals_per_linesearch,
                 stagnation_patience=o.stagnation_patience,
                 secant_refine_evals=o.secant_refine_evals, ladder=o.ladder,
                 cg_variant=o.cg_variant,
             )
+
+        with self.metrics.timer("frontend.solve"), torch.no_grad():
+            packet = self._packet(xs, ys, ts, float(np.float32(t_packet - self._t0)))
+            x0, iters_coarse = self._omega, 0
+            if cfg.coarse_to_fine:
+                # Coarse stage on a 3x-blurred IWE with half the budget, then
+                # the fine solve from its optimum (the JAX package's
+                # _build_packet_solver); iterations of both are reported.
+                coarse = minimize(packet, max(cfg.warp.blur_sigma, 1.0) * 3.0, x0,
+                                  o.max_line_searches // 2)
+                x0, iters_coarse = coarse.x, coarse.iters
+            res = minimize(packet, cfg.warp.blur_sigma, x0, o.max_line_searches)
         self._omega = res.x
         self.metrics.count("frontend.events", n)
         est = AngVelEstimate(t=t_packet, omega=res.x.numpy().astype(np.float64),
-                             cost=res.fun, iters=res.iters, num_events=n, span=(beg, end))
+                             cost=res.fun, iters=res.iters + iters_coarse, num_events=n,
+                             span=(beg, end))
         self.estimates.append(est)
         logger.debug("[front-end] packet t=%.4f n=%d iters=%d", t_packet, n, res.iters)
         return est
+
+    # ------------------------------------------------------------------
+    def render_iwe_pair(self, beg: int, end: int, omega) -> Optional[np.ndarray]:
+        """Zero-motion vs motion-compensated IWE side-by-side, normalized and
+        inverted (publishEventImage, ang_vel_estimator.cpp:203-233). Both
+        images come from one batched vote (K1 on the card) and one copy to
+        the host. None when the packet has already been retired."""
+        from .utils.image import normalize_minmax
+
+        xs, ys, ts, _ = self.store.slice_abs(beg, end)
+        if len(ts) == 0:
+            return None
+        packet = self._packet(xs, ys, ts, float(np.float32(0.5 * (ts[0] + ts[-1]) - self._t0)))
+        omegas = torch.zeros((2, 3), dtype=torch.float32, device=self.device)
+        omegas[1] = torch.as_tensor(np.asarray(omega, np.float32), device=self.device)
+        with torch.no_grad():
+            imgs = warp_local.local_iwe(omegas, packet, self.cam, 0.0).cpu().numpy()
+        stacked = np.concatenate([imgs[0], imgs[1]], axis=1)
+        return 255.0 - normalize_minmax(stacked) * 255.0

@@ -54,7 +54,9 @@ class PanoWindow(NamedTuple):
 
 
 def warp_to_pano(drotv: torch.Tensor, win: PanoWindow, pano: EquirectCamera, order: int):
-    """Warp all events through the (perturbed) trajectory; returns (px, py)."""
+    """Warp all events through the (perturbed) trajectory; returns (px, py).
+    ``drotv`` is (..., K, 3); a batch of M increments gives (M, N) each."""
+    lead = drotv.shape[:-2]
     knots = spline.apply_masked_increments(win.knots, drotv, win.free_mask)
     R = spline.evaluate_rotmats(knots, win.batch_times, win.t0, win.dt_knots, order)
     B = win.batch_times.shape[0]
@@ -63,15 +65,16 @@ def warp_to_pano(drotv: torch.Tensor, win: PanoWindow, pano: EquirectCamera, ord
     bz = win.bearings[2].reshape(B, -1)
 
     def comp(i):
-        return R[i][0][:, None] * bx + R[i][1][:, None] * by + R[i][2][:, None] * bz
+        return (R[i][0][..., None] * bx + R[i][1][..., None] * by
+                + R[i][2][..., None] * bz)
 
     x, y, z = comp(0), comp(1), comp(2)
     # Equirectangular projection (equirectangular_camera.h:25-26)
     rho = torch.sqrt(x * x + y * y + z * z)
     phi = torch.atan2(x, z)
     theta = torch.asin(torch.clamp(y / rho, -1.0, 1.0))
-    px = (pano.cx + phi * pano.fx).reshape(-1)
-    py = (pano.cy + theta * pano.fy).reshape(-1)
+    px = (pano.cx + phi * pano.fx).reshape(*lead, -1)
+    py = (pano.cy + theta * pano.fy).reshape(*lead, -1)
     return px, py
 
 
@@ -97,12 +100,13 @@ def make_pano_objective(win: PanoWindow, pano: EquirectCamera, order: int,
                         blur_sigma: float, measure: int):
     """Negative-contrast objective over flattened knot increments R^{3K}
     (global_contrast_fdf, global_optim_contrast_gsl_analytical.cpp:17-68)
-    and its value_and_grad."""
+    and its value_and_grad. f takes (3K,) or a (M, 3K) batch (one batched
+    vote for the vector and grid ladders)."""
     K = win.knots.shape[0]
 
     def f(flat_drotv):
-        _, image = pano_objective_image(flat_drotv.reshape(K, 3), win, pano, order,
-                                        blur_sigma)
+        drotv = flat_drotv.reshape(*flat_drotv.shape[:-1], K, 3)
+        _, image = pano_objective_image(drotv, win, pano, order, blur_sigma)
         return -contrast(image, measure)
 
     return f, value_and_grad(f)
@@ -142,13 +146,15 @@ def make_crop_objective(win: PanoWindow, pano: EquirectCamera, order: int,
     """Crop-decomposed negative-contrast objective over R^{3K}, equal to
     make_pano_objective's value under the crop invariants. a_crop is the
     constant alpha * blur(IG') under the crop; out_s1/out_s2 the constant
-    stats of that term outside the valid interior."""
+    stats of that term outside the valid interior. f takes (3K,) or a
+    (M, 3K) batch."""
     K = win.knots.shape[0]
     Hc, Wc = crop_hw
     n_total = pano.height * pano.width
 
     def f(flat_drotv):
-        px, py = warp_to_pano(flat_drotv.reshape(K, 3), win, pano, order)
+        drotv = flat_drotv.reshape(*flat_drotv.shape[:-1], K, 3)
+        px, py = warp_to_pano(drotv, win, pano, order)
         il = vote(px - x0f, py - y0f, win.weights, Hc, Wc)
         image = gaussian_blur(il, blur_sigma) + a_crop
         s1, s2 = contrast_mod.region_stats(image, mask, measure)

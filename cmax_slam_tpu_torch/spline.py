@@ -117,18 +117,21 @@ def _soa_exp(v):
 
 
 def evaluate_rotmats(knots: torch.Tensor, t: torch.Tensor, t0, dt, order: int):
-    """Spline rotation matrices at times ``t`` (B,) as a 3x3 nest of (B,)
+    """Spline rotation matrices at times ``t`` (B,) as a 3x3 nest of (..., B)
     component tensors R[i][j]: ``lie.to_matrix(evaluate(...))`` in
-    component-wise arithmetic, the form the back-end warp consumes."""
-    num_knots = knots.shape[0]
+    component-wise arithmetic, the form the back-end warp consumes. ``knots``
+    is (..., K, 4); leading dimensions (a batch of candidate trajectories)
+    carry through to the components."""
+    num_knots = knots.shape[-2]
     s, u = _segment_and_u(t, t0, dt, num_knots, order)
     coeff = _coeffs(u, order, knots.dtype)  # (B, order)
-    kq = knots[s[:, None] + torch.arange(order, device=knots.device)]  # (B, order, 4)
+    kq = knots[..., s[:, None] + torch.arange(order, device=knots.device), :]  # (..., B, order, 4)
 
-    res = tuple(kq[:, 0, c] for c in range(4))
+    res = tuple(kq[..., 0, c] for c in range(4))
     for j in range(1, order):
-        q0_inv = (kq[:, j - 1, 0], -kq[:, j - 1, 1], -kq[:, j - 1, 2], -kq[:, j - 1, 3])
-        q1 = tuple(kq[:, j, c] for c in range(4))
+        q0_inv = (kq[..., j - 1, 0], -kq[..., j - 1, 1], -kq[..., j - 1, 2],
+                  -kq[..., j - 1, 3])
+        q1 = tuple(kq[..., j, c] for c in range(4))
         dx, dy, dz = _soa_log(_soa_mul(q0_inv, q1))
         c = coeff[:, j]
         res = _soa_mul(res, _soa_exp((c * dx, c * dy, c * dz)))

@@ -104,6 +104,54 @@ class CMaxSLAM:
     def window_results(self) -> List[WindowResult]:
         return [] if self.backend is None else self.backend.results
 
+    def refine(self, source, passes: int = 1) -> List[WindowResult]:
+        """Offline polish: re-run the sliding-window bundle adjustment over
+        the whole stream ``passes`` times, starting from the online
+        trajectory and global map (Backend.refine_pass; removes the
+        map-bootstrap transient the online pass bakes into the early knots).
+
+        ``source`` is the SAME raw event stream the online pass consumed:
+        a tuple of arrays ``(xs, ys, ts[, ps])``, an iterable of such
+        chunks (single pass only), or a zero-arg callable returning a fresh
+        chunk iterator (re-readable; required for ``passes > 1``).
+        Decimation by ``frontend_event_sample_rate`` is re-applied
+        identically, so callers always pass raw sensor events."""
+        if self.backend is None:
+            raise ValueError("refine requires a back-end")
+        if passes > 1 and not (callable(source) or isinstance(source, tuple)):
+            raise ValueError("passes > 1 needs a re-readable source: pass "
+                             "arrays or a callable returning a fresh iterator")
+        results: List[WindowResult] = []
+        for _ in range(passes):
+            if callable(source):
+                chunks = source()
+            elif isinstance(source, tuple):
+                chunks = iter([source])
+            else:
+                chunks = iter(source)
+            results = self.backend.refine_pass(self._decimated(chunks))
+        return results
+
+    def _decimated(self, chunks):
+        """Re-apply push_events' phase-continuous decimation to raw chunks
+        (the back-end consumed the decimated store during the online pass)."""
+        rate = self.cfg.frontend_event_sample_rate
+        phase = 0
+        for ch in chunks:
+            xs, ys, ts = ch[0], ch[1], ch[2]
+            if rate > 1:
+                n = len(ts)
+                sel = (np.arange(n) + phase) % rate == 0
+                phase = (phase + n) % rate
+                xs, ys, ts = xs[sel], ys[sel], ts[sel]
+            yield (xs, ys, ts)
+
+    def close(self) -> None:
+        """Release the system's resources. The port holds no background
+        threads, so this only flushes; kept so that callers written for the
+        JAX system run unchanged."""
+        self.flush()
+
     @property
     def raw_count(self) -> int:
         """Raw (pre-decimation) events consumed so far."""

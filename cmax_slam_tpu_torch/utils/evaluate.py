@@ -1,5 +1,5 @@
-"""Trajectory RMS after gauge alignment; host-only copy of
-cmax_slam_tpu/utils/evaluate.py::rotation_rms_deg and its helpers."""
+"""Trajectory RMS after gauge alignment and TUM-format IO; host-only copy of
+cmax_slam_tpu/utils/evaluate.py."""
 
 from __future__ import annotations
 
@@ -48,3 +48,31 @@ def rotation_rms_deg(
     A = (align_global if alignment == "global" else align_first)(R_ref, R_est)
     errs = np.array([angle_deg(R_ref[i], A @ R_est[i]) for i in range(len(R_ref))])
     return float(np.sqrt(np.mean(errs**2))), errs
+
+
+def write_tum_trajectory(path: str, traj: "spline.Trajectory",
+                         dt_sample: float = 0.01) -> None:
+    """Write 'timestamp tx ty tz qx qy qz qw' lines (TUM convention;
+    translation zero for rotation-only SLAM)."""
+    t0 = traj.t_beg + 1e-9
+    t1 = traj.max_time() - 1e-9
+    if t1 <= t0:
+        with open(path, "w") as f:
+            f.write("# empty trajectory\n")
+        return
+    times = np.arange(t0, t1, dt_sample)
+    quats = traj.evaluate(times)
+    with open(path, "w") as f:
+        f.write("# t tx ty tz qx qy qz qw (rotation-only; translation = 0)\n")
+        for t, q in zip(times, quats):
+            w, x, y, z = q
+            f.write(f"{t:.9f} 0 0 0 {x:.9f} {y:.9f} {z:.9f} {w:.9f}\n")
+
+
+def read_tum_trajectory(path: str):
+    """Read TUM-format trajectory -> (times, quats wxyz)."""
+    data = np.loadtxt(path)
+    times = data[:, 0]
+    qx, qy, qz, qw = data[:, 4], data[:, 5], data[:, 6], data[:, 7]
+    quats = np.stack([qw, qx, qy, qz], axis=-1)
+    return times, quats

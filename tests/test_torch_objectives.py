@@ -154,3 +154,38 @@ def test_pano_il_split_and_map_update_match_jax(rng):
         warp_pano.accumulate_global_map(torch.tensor(ig), to, torch.tensor(upd), 2).numpy(),
         np.asarray(jwarp_pano.accumulate_global_map(jnp.asarray(ig), jo, jnp.asarray(upd), 2)),
         atol=1e-4)
+
+
+@pytest.mark.parametrize("objective", ["crop", "full"])
+def test_pano_objectives_take_a_batch_of_candidates(rng, objective):
+    """The back-end objectives take a (M, 3K) stack of knot increments in
+    one batched evaluation (the vector and grid ladders' rung sweep) and
+    give each candidate's value, equal to JAX's vmap of the same objective."""
+    order, sigma, measure = 2, 1.0, VARIANCE_CONTRAST
+    win_j, pano_j, _, _ = _make_window(rng, n_events=4096)
+    win_j = win_j._replace(ig_prime=jnp.asarray(_smooth_map(rng, pano_j.height, pano_j.width)))
+    K = win_j.knots.shape[0]
+    pano = calib.EquirectCamera(width=pano_j.width, height=pano_j.height)
+    win = _to_torch(win_j)
+    if objective == "crop":
+        Hc, Wc, ints = _plan_for_test(win_j, pano_j, order, sigma, measure)
+        cj = jwarp_pano.crop_window_constants(win_j, pano_j, order, sigma, measure, (Hc, Wc),
+                                              jnp.asarray(ints))
+        fj, _ = jwarp_pano.make_crop_objective(cj[0], pano_j, order, sigma, measure,
+                                               (Hc, Wc), *cj[1:])
+        ct = warp_pano.crop_window_constants(win, pano, order, sigma, measure, (Hc, Wc), ints)
+        ft, _ = warp_pano.make_crop_objective(ct[0], pano, order, sigma, measure, (Hc, Wc),
+                                              *ct[1:])
+    else:
+        win_j = win_j._replace(alpha=jnp.float32(0.3))
+        fj, _ = jwarp_pano.make_pano_objective(win_j, pano_j, order, sigma, measure)
+        ft, _ = warp_pano.make_pano_objective(win._replace(alpha=torch.tensor(0.3)), pano,
+                                              order, sigma, measure)
+    stack = (rng.normal(size=(5, 3 * K)) * np.array([0, 0.003, 0.01, 0.02, 0.005])[:, None]
+             ).astype(np.float32)
+    batched = ft(torch.tensor(stack)).numpy()
+    assert batched.shape == (5,)
+    singles = np.array([float(ft(torch.tensor(s))) for s in stack])
+    np.testing.assert_allclose(batched, singles, rtol=1e-5)
+    np.testing.assert_allclose(batched, np.asarray(jax.jit(jax.vmap(fj))(jnp.asarray(stack))),
+                               rtol=1e-4)

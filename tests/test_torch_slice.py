@@ -191,3 +191,28 @@ def test_full_pano_solver_matches_jax(runs):
     assert k_t.shape == k_j.shape and _knot_deg(k_t, k_j).max() < KNOT_DEG
     ig_t, ig_j = t.backend.IG.numpy(), np.asarray(j.backend.IG)
     assert abs(ig_t.sum() - ig_j.sum()) < 1e-3 * ig_j.sum()
+
+
+def test_max_ba_correction_rejects_like_jax(runs):
+    """backend.max_ba_correction_rad: the BA solve stops at the trust radius
+    and a window whose correction moves a knot past the cap is rejected (the
+    front-end knots stay, the map absorbs nothing). At a cap of 1e-4 rad
+    every window that runs BA on this stream is rejected by both systems."""
+    ev = runs["ev"]
+    n = 40_000  # 0.4 s
+    j, t = _systems(dict(OVERRIDES, **{"backend.max_ba_correction_rad": 1e-4}))
+    for i in range(0, n, CHUNK):
+        chunk = (ev.xs[i:i + CHUNK], ev.ys[i:i + CHUNK], ev.ts[i:i + CHUNK], ev.pols[i:i + CHUNK])
+        j.push_events(*chunk)
+        t.push_events(*chunk)
+    j.flush()
+    res_t, res_j = t.window_results(), j.window_results()
+    assert [(r.index, r.ran_ba, r.rejected) for r in res_t] == \
+        [(r.index, r.ran_ba, r.rejected) for r in res_j]
+    assert all(r.rejected for r in res_t if r.ran_ba) and sum(r.ran_ba for r in res_t) >= 2
+    c_t, c_j = t.metrics.counters, j.metrics.counters
+    assert c_t["backend.ba_rejected"] == c_j["backend.ba_rejected"] >= 2
+    assert not t.backend.IG.any() and not np.asarray(j.backend.IG).any()
+    _assert_omega_close(t.ang_vel_log, j.ang_vel_log)
+    k_t, k_j = t.backend.traj.knots, j.backend.traj.knots
+    assert k_t.shape == k_j.shape and _knot_deg(k_t, k_j).max() < KNOT_DEG

@@ -72,6 +72,34 @@ def test_plain_vote_matches_jax(rng, ref):
         np.testing.assert_allclose(a, b, atol=ATOL, err_msg=name)
 
 
+@pytest.mark.parametrize("orient", ["rows", "mixed"])
+def test_vote_backward_matches_pallas_row_orientations(rng, orient):
+    """The third Pallas kernel (pallas_iwe._bwd_kernel, orient "rows" and
+    "mixed") computes the same VJP as the "lanes" kernel that K2 replaces,
+    with the same in-bounds rule and one-sided derivative; only the layout
+    of its hat contraction differs. So the port's vote backward (K2's plain
+    version on the CPU) serves it: held here against both orientations on
+    integer, out-of-bounds, non-finite and weight-0 events."""
+    H, W = 40, 56
+    n = 900
+    px, py, w = _events(rng, n, H, W)
+    key = rng.normal(size=(H, W)).astype(np.float32)
+
+    def fn(a, b, c):
+        return bilinear_accumulate_pallas(a, b, c, H, W, "highest", 512, 8, orient)
+
+    img_j, g_j = _jax_vote_and_grads(fn, px, py, w, key)
+    img_t, g_t = _torch_vote_and_grads(px, py, w, key, H, W)
+    np.testing.assert_allclose(img_t, img_j, atol=ATOL)
+    for name, a, b in zip(("dpx", "dpy", "dw"), g_t, g_j):
+        assert np.all(np.isfinite(a)), name
+        np.testing.assert_allclose(a, b, atol=ATOL, err_msg=name)
+    dropped = ~np.isfinite(px) | (w == 0)
+    assert dropped.sum() >= 3
+    for a in g_t:
+        np.testing.assert_array_equal(a[dropped & (w == 0)], 0)
+
+
 def test_dropped_events_vote_nothing_and_get_zero_gradients(rng):
     H, W = 20, 30
     # floor(px) = 0 and W-2, floor(py) = H-2, weight 0, NaN: all dropped.
