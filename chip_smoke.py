@@ -20,16 +20,30 @@ Phases, in order; any failure exits non-zero:
    refine pass, IWE-pair and map dumps: all outputs written, every event
    read back, >= 15 windows, both kernels launched (K1 also inside the IWE
    renders), the TUM trajectory < 0.3 deg RMS; then a run cut at 1.0 s and
-   one resuming its final_state.npz must continue the packet grid.
+   one resuming its final_state.npz must continue the packet grid;
+6. batched: ``cut_packets`` and ``track_batched_compacted(sweeps=2)`` on the
+   same stream at full width (240x180, 10 000-event packets, the stock ijrr
+   front-end): median |omega - omega_true| < 0.2 rad/s, every lane's
+   iterations in (0, max_line_searches], both kernels launched, and one K1
+   launch of at least 224 lanes' images; prints packets per second, the
+   rounds and the median difference against phase 4's sequential log;
+7. multi-device on one card, with the device list ["cuda:0", "cuda:0"]: the
+   event-sharded window objective against the single-device one on a
+   back-end window of the stream, at the ijrr 512x1024 panorama and at
+   2048x4096 (the blur's shift-and-add path), value within rtol 2e-5 and
+   gradient within rtol 2e-3, atol 2e-6; then the 2-segment replay
+   (overlap 0.4 s) on the stock preset, stitched RMS < 0.5 deg.
 
 Before the last line it prints one JSON object with every kernel's route,
-source, launches on each path (the system run of phase 4 and the CLI run of
-phase 5, each counted from 0), error and times; the last line is
+source, launches on each path (the system run of phase 4, the CLI run of
+phase 5, the batched run of phase 6 and the window and replay runs of
+phase 7, each counted from 0), error and times; the last line is
 ``{"ok": true, "device": {...}}``. Imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -53,6 +67,11 @@ SHAPES = (
     ("crop", 1, 1 << 18, 384, 384, ("fwd", "bwd")),
     ("split", 2, 1 << 18, 512, 1024, ("fwd",)),
     ("headroom", 1, 1 << 20, 180, 240, ("fwd", "bwd")),
+    # Lane-batched front-end (phase 6): the first compacted bucket of the
+    # 2 s stream is 224 packets, times 9 vector-ladder rungs per bracket,
+    # and 224 packets per value-and-grad.
+    ("lanes", 2016, 10_000, 180, 240, ("fwd",)),
+    ("lanegrad", 224, 10_000, 180, 240, ("fwd", "bwd")),
 )
 # The shape whose times go into the JSON line, per kernel.
 REPORTED = {"fwd": "sweep", "bwd": "crop"}
@@ -169,6 +188,7 @@ def _rot_fn(omega):
     return rot_fn
 
 
+@functools.lru_cache(maxsize=2)
 def make_stream(duration: float = 2.0):
     """The examples/tpu_realtime_check.py stream (240x180, fx = fy = 180,
     omega = [0.9, -1.3, 1.9], 1200 landmarks, 390k ev/s, seed 11) with the
@@ -176,7 +196,8 @@ def make_stream(duration: float = 2.0):
     in 2 s the camera turns 286 degrees, and with the cone its view leaves
     the landmarks around t = 1.3 s (windows fall to 20k events), where the
     JAX system on the CPU ends 3.3 deg RMS off the truth on this 2 s cut.
-    On the sphere every view keeps texture. Returns (events, omega, calib)."""
+    On the sphere every view keeps texture. Returns (events, omega, calib);
+    cached, so every phase reads the same arrays (read-only)."""
     from cmax_slam_tpu_torch.calib import CameraCalibration
     from cmax_slam_tpu_torch.io import synthetic
 
@@ -201,7 +222,7 @@ def _reset_launches():
 
 def run_system(device: str = "cuda"):
     """Phase 4: the stock preset through the public entry points. Returns
-    (launches during the run, {check: passed})."""
+    (launches during the run, {check: passed}, the (T, 4) ang_vel_log)."""
     import torch
     from cmax_slam_tpu_torch import spline
     from cmax_slam_tpu_torch.config import ijrr_config
@@ -249,7 +270,7 @@ def run_system(device: str = "cuda"):
         "finite omega log": log.shape[1] == 4 and bool(np.isfinite(log).all()),
         "RMS < 0.3 deg": rms < 0.3,
     }
-    return launches, checks
+    return launches, checks, log
 
 
 def run_cli(device: str = "cuda", duration: float = 2.0):
@@ -362,6 +383,203 @@ def run_cli(device: str = "cuda", duration: float = 2.0):
     return launches, checks
 
 
+def _cam(calib):
+    from cmax_slam_tpu_torch.ops.warp_local import CameraParams
+
+    K = calib.K
+    return CameraParams(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                        cy=float(K[1, 2]), width=calib.width, height=calib.height)
+
+
+def run_batched(device: str = "cuda", seq_log=None, duration: float = 2.0):
+    """Phase 6: throughput-mode tracking of the whole stream at full width.
+    Returns (launches during the tracking, {check: passed})."""
+    import torch
+    from cmax_slam_tpu_torch.calib import bearing_lut
+    from cmax_slam_tpu_torch.config import ijrr_config
+    from cmax_slam_tpu_torch.ops import cuda_iwe
+    from cmax_slam_tpu_torch.parallel import batched
+
+    ev, omega, calib = make_stream(duration)
+    cfg = ijrr_config().frontend
+    cam = _cam(calib)
+    t0 = time.perf_counter()
+    pb = batched.cut_packets(ev.xs, ev.ys, ev.ts, bearing_lut(calib), cam, cfg, device=device)
+    t_cut = time.perf_counter() - t0
+
+    # Widest K1 launch and the number of compaction rounds, read through
+    # wrappers of the kernel wrapper and of the round (counts are untouched).
+    widest, rounds = [0], [0]
+    vote_fwd, run_round = cuda_iwe.vote_fwd, batched._run_round
+
+    def widest_vote(px, *a, **kw):
+        widest[0] = max(widest[0], px.shape[0])
+        return vote_fwd(px, *a, **kw)
+
+    def counted_round(*a, **kw):
+        rounds[0] += 1
+        return run_round(*a, **kw)
+
+    cuda_iwe.vote_fwd, batched._run_round = widest_vote, counted_round
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        times, om, _, iters = batched.track_batched_compacted(pb, cam, cfg, sweeps=2)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_iwe.LAUNCHES)
+    finally:
+        cuda_iwe.vote_fwd, batched._run_round = vote_fwd, run_round
+    n = len(times)
+    err = np.linalg.norm(om - omega, axis=1)
+    vs_seq = "n/a"
+    if seq_log is not None and len(seq_log):
+        m = min(len(seq_log), n)
+        if np.allclose(seq_log[:m, 0], times[:m], atol=1e-9):
+            vs_seq = f"{np.median(np.linalg.norm(om[:m] - seq_log[:m, 1:], axis=1)):.4f} rad/s"
+    max_ls = cfg.optim.max_line_searches
+    _log(f"batched: {n} packets x {pb.bearings.shape[1]} events cut in {t_cut:.2f} s; "
+         f"tracked in {wall:.2f} s ({n / wall:.1f} packets/s, {n * pb.bearings.shape[1] / wall:.0f}"
+         f" events/s), {rounds[0]} rounds over 2 sweeps; median |omega - omega_true| "
+         f"{np.median(err):.4f} rad/s (max {err.max():.4f}); median vs sequential log "
+         f"{vs_seq}; iters min {iters.min()} mean {iters.mean():.1f} max {iters.max()}; "
+         f"launches {launches}, widest K1 launch B={widest[0]}")
+    checks = {
+        "median omega error < 0.2 rad/s": float(np.median(err)) < 0.2,
+        "iters in (0, max_line_searches]": bool(np.all((iters > 0) & (iters <= max_ls))),
+        "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+        "a K1 launch of >= 224 lanes' images": widest[0] >= 224,
+    }
+    return launches, checks
+
+
+def make_window(ev, omega, calib, pano_hw, device, t_lo=0.5, span=0.2, dt_knots=0.05,
+                bs=100, seed=0):
+    """A back-end window of the stream: ``span`` s of events from ``t_lo``
+    in batches of ``bs``, linear-spline knots every ``dt_knots`` s at the
+    true pose perturbed by ~0.004 rad (the first frozen), an empty map."""
+    import torch
+    from cmax_slam_tpu_torch import spline
+    from cmax_slam_tpu_torch.calib import bearing_lut
+    from cmax_slam_tpu_torch.ops.warp_pano import PanoWindow
+
+    a, b = np.searchsorted(ev.ts, [t_lo, t_lo + span])
+    n = ((b - a) // bs) * bs
+    xs, ys, ts = ev.xs[a:a + n], ev.ys[a:a + n], ev.ts[a:a + n]
+    bearings = bearing_lut(calib)[ys.astype(np.int64) * calib.width + xs].T
+    tb = ts.reshape(-1, bs)
+    mid = tb[:, 0] + 0.5 * (tb[:, -1] - tb[:, 0])
+    K = int(round(span / dt_knots)) + 1
+    rng = np.random.default_rng(seed)
+    knots = np.stack([spline._np_quat_exp(omega * (t_lo + k * dt_knots)
+                                          + 0.004 * rng.normal(size=3)) for k in range(K)])
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return PanoWindow(
+        bearings=t(bearings).contiguous(), batch_times=t(mid - t_lo),
+        weights=t(np.ones(n)), is_old=t(np.zeros(n, bool), torch.bool), knots=t(knots),
+        free_mask=t(np.r_[0.0, np.ones(K - 1)]), t0=0.0, dt_knots=float(np.float32(dt_knots)),
+        ig_prime=t(np.zeros(pano_hw)), alpha=t(0.0))
+
+
+def run_window_shard(device: str = "cuda", devices=("cuda:0", "cuda:0"),
+                     panos=((512, 1024), (2048, 4096)), duration: float = 2.0):
+    """Phase 7a: the event-sharded window objective against the
+    single-device one. Returns (launches, {check: passed})."""
+    import torch
+    from cmax_slam_tpu_torch.calib import EquirectCamera
+    from cmax_slam_tpu_torch.ops import cuda_iwe, warp_pano
+    from cmax_slam_tpu_torch.parallel.window_shard import (
+        make_sharded_pano_objective, shard_window_events)
+
+    ev, omega, calib = make_stream(duration)
+
+    def timed(fn, x, reps=5):
+        fn(x)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn(x)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / reps * 1e3
+
+    checks, launches = {}, {"fwd": 0, "bwd": 0}
+    for hw in panos:
+        win = make_window(ev, omega, calib, hw, device)
+        pano = EquirectCamera(width=hw[1], height=hw[0])
+        K = win.knots.shape[0]
+        x = torch.as_tensor(0.01 * np.random.default_rng(1).normal(size=3 * K),
+                            dtype=torch.float32, device=device)
+        _, vg_ref = warp_pano.make_pano_objective(win, pano, 2, 1.0, 0)
+        _reset_launches()
+        shards = shard_window_events(win, list(devices))
+        _, vg_sh = make_sharded_pano_objective(list(devices), shards, pano, 2, 1.0, 0)
+        (v_sh, g_sh), ms_sh = timed(vg_sh, x)
+        for k, v in cuda_iwe.LAUNCHES.items():
+            launches[k] += v
+        (v_ref, g_ref), ms_ref = timed(vg_ref, x)
+        v_sh, v_ref, g_sh, g_ref = (float(v_sh), float(v_ref), g_sh.cpu().numpy(),
+                                    g_ref.cpu().numpy())
+        tag = f"{hw[0]}x{hw[1]}"
+        _log(f"window_shard {tag}: {win.weights.shape[0]} events in "
+             f"{win.batch_times.shape[0]} batches over {len(devices)} devices; value "
+             f"{v_sh:.9g} vs single-device {v_ref:.9g} (rel {abs(v_sh - v_ref) / abs(v_ref):.2e});"
+             f" grad max abs diff {np.abs(g_sh - g_ref).max():.3e} (max |g| "
+             f"{np.abs(g_ref).max():.3e}); value_and_grad {ms_sh:.2f} ms sharded, "
+             f"{ms_ref:.2f} ms single-device")
+        checks[f"{tag} value rtol 2e-5"] = bool(np.isfinite(v_sh)) and np.isclose(
+            v_sh, v_ref, rtol=2e-5, atol=0)
+        checks[f"{tag} gradient rtol 2e-3 atol 2e-6"] = bool(
+            np.allclose(g_sh, g_ref, rtol=2e-3, atol=2e-6))
+    checks["both kernels launched"] = launches["fwd"] > 0 and launches["bwd"] > 0
+    return launches, checks
+
+
+def run_replay(devices=("cuda:0", "cuda:0"), duration: float = 2.0):
+    """Phase 7b: 2-segment replay on the stock preset, one segment per
+    device entry. Returns (launches, {check: passed})."""
+    import torch
+    from cmax_slam_tpu_torch import spline
+    from cmax_slam_tpu_torch.config import ijrr_config
+    from cmax_slam_tpu_torch.ops import cuda_iwe
+    from cmax_slam_tpu_torch.parallel import replay
+    from cmax_slam_tpu_torch.utils.evaluate import rotation_rms_deg
+
+    ev, omega, calib = make_stream(duration)
+    _reset_launches()
+    t0 = time.perf_counter()
+    times, quats, segs = replay.replay_multichip(
+        ev.xs, ev.ys, ev.ts, ev.pols, calib, ijrr_config(), n_segments=2, overlap=0.4,
+        devices=list(devices))
+    if any(torch.device(d).type == "cuda" for d in devices):
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_iwe.LAUNCHES)
+    q_gt = np.stack([spline._np_quat_exp(omega * t) for t in times])
+    rms, errs = rotation_rms_deg(times, q_gt, quats, "global")
+    wins = [len(s.slam.window_results()) for s in segs]
+    _log(f"replay: 2 segments on {list(devices)}, wall {wall:.2f} s for {duration} s of "
+         f"stream; windows per segment {wins}; stitched RMS {rms:.4f} deg (max "
+         f"{errs.max():.3f}) over {len(times)} samples; launches {launches}")
+    checks = {
+        "stitched RMS < 0.5 deg": rms < 0.5,
+        "every segment ran its back-end": all(w >= 2 for w in wins),
+        "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+    }
+    return launches, checks
+
+
+def _require(phase: str, checks: dict) -> None:
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase} checks failed: {failed}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "cmax_slam_tpu_torch", "csrc")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -386,14 +604,16 @@ def main() -> int:
     cuda_iwe.build()
     _log(f"build: {time.perf_counter() - t0:.2f} s ({cuda_iwe.library_path().name})")
     kernels = check_kernels(np.random.default_rng(0))
-    launches, checks = run_system()
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"system checks failed: {failed}")
+    launches, checks, seq_log = run_system()
+    _require("system", checks)
     cli_launches, checks = run_cli()
-    failed = [k for k, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"cli checks failed: {failed}")
+    _require("cli", checks)
+    batched_launches, checks = run_batched(seq_log=seq_log)
+    _require("batched", checks)
+    shard_launches, checks = run_window_shard()
+    _require("window_shard", checks)
+    replay_launches, checks = run_replay()
+    _require("replay", checks)
 
     src = "cmax_slam_tpu_torch/csrc/iwe.cu"
     replaces = {"fwd": "cmax_slam_tpu/ops/pallas_iwe.py:276 (_fwd_impl, pallas_call at :289)",
@@ -402,8 +622,9 @@ def main() -> int:
     names = {"fwd": "vote_fwd", "bwd": "vote_bwd"}
     print(json.dumps({"kernels": [
         {"name": names[k], "route": "cuda", "source": src, "replaces": replaces[k],
-         "launches": launches[k], "launches_by_path": {"system": launches[k],
-                                                       "cli": cli_launches[k]},
+         "launches": launches[k], "launches_by_path": {
+             "system": launches[k], "cli": cli_launches[k], "batched": batched_launches[k],
+             "window_shard": shard_launches[k], "replay": replay_launches[k]},
          "max_abs_err": v["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
          "shape": v["shape"], "by_shape": v["by_shape"]}
         for k, v in kernels.items()]}))

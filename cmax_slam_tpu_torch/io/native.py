@@ -1,9 +1,9 @@
-"""Packet-trigger scan; host-only copy of the numpy fallback of
-cmax_slam_tpu/io/native.py::scan_triggers.
+"""Packet-trigger scan and packet gather; host-only copies of the numpy
+fallbacks of cmax_slam_tpu/io/native.py::scan_triggers and ::gather_packet.
 
-The JAX package runs this walk in C++ when native/libevstream.so is built
-and in numpy otherwise; both give the same triggers. The port carries the
-numpy form only.
+The JAX package runs these in C++ when native/libevstream.so is built and in
+numpy otherwise; both give the same results. The port carries the numpy form
+only.
 """
 
 from __future__ import annotations
@@ -33,3 +33,21 @@ def scan_triggers(
         cursor += dt
         i = idx + 1
     return np.asarray(out, np.int64), cursor, i
+
+
+def gather_packet(xs: np.ndarray, ys: np.ndarray, ts: np.ndarray, beg: int, end: int,
+                  cap: int, lut: np.ndarray, width: int, t0: float):
+    """LUT gather + pad of events [beg, end) into fixed-size packet buffers:
+    (cap, 3) bearings, (cap,) float32 times relative to ``t0`` and (cap,)
+    weights (1 real, 0 padding). Padding bearings are the optical axis
+    (0, 0, 1), never zeros: the warp divides by the ray's z."""
+    n = min(end - beg, cap)
+    bearings = np.zeros((cap, 3), np.float32)
+    bearings[:, 2] = 1.0
+    idx = ys[beg:beg + n].astype(np.int64) * width + xs[beg:beg + n]
+    bearings[:n] = lut[idx]
+    ts_rel = np.zeros(cap, np.float32)
+    ts_rel[:n] = (ts[beg:beg + n] - t0).astype(np.float32)
+    w = np.zeros(cap, np.float32)
+    w[:n] = 1.0
+    return bearings, ts_rel, w

@@ -14,7 +14,9 @@ Nothing is imported or compiled when this module is imported. There is no
 fallback: a build or launch that fails raises.
 
 ``LAUNCHES`` counts kernel launches, one per launch and nowhere else, so a
-run can show that its votes went through the kernels.
+run can show that its votes went through the kernels. The build and the
+counts are guarded by a lock: the multi-device modes drive votes from
+several host threads.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -36,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 
 _lib = None
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -55,6 +59,11 @@ def library_path() -> Path:
 def build():
     """Compile csrc/iwe.cu (once per source hash) and load it; returns the
     ctypes library. Raises with nvcc's output if the build fails."""
+    with _lock:
+        return _build_locked()
+
+
+def _build_locked():
     global _lib
     if _lib is not None:
         return _lib
@@ -110,7 +119,8 @@ def vote_fwd(px: torch.Tensor, py: torch.Tensor, w: torch.Tensor,
         err = lib.iwe_vote_fwd(px.data_ptr(), py.data_ptr(), w.data_ptr(), out.data_ptr(),
                                b, n, height, width, stream)
     _check("iwe_vote_fwd", err, lib)
-    LAUNCHES["fwd"] += 1
+    with _lock:
+        LAUNCHES["fwd"] += 1
     return out
 
 
@@ -132,7 +142,8 @@ def vote_bwd(px: torch.Tensor, py: torch.Tensor, w: torch.Tensor, g: torch.Tenso
                                dpx.data_ptr(), dpy.data_ptr(), dw.data_ptr(),
                                b, n, height, width, stream)
     _check("iwe_vote_bwd", err, lib)
-    LAUNCHES["bwd"] += 1
+    with _lock:
+        LAUNCHES["bwd"] += 1
     return dpx, dpy, dw
 
 

@@ -25,10 +25,16 @@ from .utils.metrics import Metrics
 
 class CMaxSLAM:
     def __init__(self, calib: CameraCalibration, cfg: Optional[SystemConfig] = None, *,
-                 device, run_backend: bool = True):
-        """``device``: where every solve and the maps live ('cpu' or 'cuda').
-        It is required; 'cuda' without a usable card raises."""
+                 device, backend_device=None, run_backend: bool = True):
+        """``device``: where the front-end's packet solves run ('cpu' or
+        'cuda'); required, and 'cuda' without a usable card raises.
+        ``backend_device``: where the back-end's maps, LUT and window solves
+        live (default: ``device``); a second card maps the reference's
+        back-end thread (src/cmax_slam.cpp:92) onto its own chip. The two
+        stages exchange only host floats (angular velocities)."""
         self.device = resolve_device(device)
+        self.backend_device = (self.device if backend_device is None
+                               else resolve_device(backend_device))
         self.cfg = cfg if cfg is not None else SystemConfig()
         self.calib = calib
         self.metrics = Metrics()
@@ -44,7 +50,7 @@ class CMaxSLAM:
         if run_backend:
             self.backend = Backend(
                 calib.width, calib.height, lut, self.cfg.backend, self.store,
-                device=self.device,
+                device=self.backend_device,
                 frontend_sample_rate=self.cfg.frontend_event_sample_rate,
                 metrics=self.metrics,
             )

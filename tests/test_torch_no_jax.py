@@ -57,7 +57,8 @@ def test_importing_every_module_needs_no_jax_and_builds_nothing(tmp_path):
         "ops.scatter", "ops.cuda_iwe", "ops.blur", "ops.contrast", "ops.warp_local",
         "ops.optim", "ops.warp_pano", "io.events", "io.native", "io.synthetic",
         "utils.metrics", "utils.evaluate", "utils.device", "cli", "io.streams", "io.rosbag",
-        "utils.image")}
+        "utils.image", "parallel", "parallel.sharding", "parallel.batched",
+        "parallel.window_shard", "parallel.replay")}
     assert expected <= set(res["names"])
     assert not res["preloaded"]
     assert not res["lib"] and res["launches"] == {"fwd": 0, "bwd": 0}
@@ -77,3 +78,26 @@ def test_device_is_explicit_and_checked():
     slam = CMaxSLAM(calib, ijrr_config(), device="cpu")
     assert slam.backend.IG.device.type == "cpu"
     assert slam.frontend.lut.device.type == "cpu"
+
+
+def test_device_lists_are_explicit_and_checked():
+    """The multi-device modes take a device list (the JAX package's mesh);
+    repeats stand for several devices on one card, and a CUDA entry without
+    a card raises instead of running on the CPU."""
+    from cmax_slam_tpu_torch.parallel import batched
+    from cmax_slam_tpu_torch.parallel.sharding import make_mesh
+    from cmax_slam_tpu_torch.utils.device import resolve_devices
+
+    assert make_mesh(3, "cpu") == [torch.device("cpu")] * 3
+    for bad in (None, [], "cpu"):
+        with pytest.raises(ValueError, match="non-empty list"):
+            resolve_devices(bad)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            make_mesh(2, "cuda:0")
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_devices(["cpu", "cuda:0"])
+        with pytest.raises(RuntimeError, match="cuda"):
+            batched.cut_packets(np.zeros(4, np.int32), np.zeros(4, np.int32),
+                                np.linspace(0, 0.1, 4), np.zeros((1, 3), np.float32),
+                                None, ijrr_config().frontend, device="cuda")

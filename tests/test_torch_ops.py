@@ -122,6 +122,26 @@ def test_blur_matches_jax_with_border_adjoint(rng, shape):
     assert not np.allclose(ti.grad.numpy(), blur.gaussian_blur(_t(key), 1.0).numpy(), atol=1e-3)
 
 
+def test_blur_above_two_megapixels_is_shift_and_add(rng):
+    """Just above 2^21 pixels both packages leave the band matmuls for the
+    separable reflect-101 shift-and-add (JAX: _blur_conv). The port's result
+    equals JAX's and the band-matrix blur's, and so does its gradient."""
+    H, W = 1024, 2050
+    assert H * W > blur.SHIFT_ADD_MIN_PIXELS >= 512 * 1024
+    img = rng.uniform(0, 3, (H, W)).astype(np.float32)
+    key = rng.normal(size=(H, W)).astype(np.float32)
+    ti = _t(img).requires_grad_(True)
+    out_t = blur.gaussian_blur(ti, 1.0)
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(jblur.gaussian_blur(_j(img), 1.0)),
+                               rtol=0, atol=1e-6)
+    band = (torch.tensor(blur._blur_matrix(H, 1.0)) @ _t(img)
+            @ torch.tensor(blur._blur_matrix(W, 1.0)).T)
+    np.testing.assert_allclose(out_t.detach().numpy(), band.numpy(), rtol=0, atol=1e-6)
+    torch.sum(_t(key) * out_t).backward()
+    g_j = jax.grad(lambda a: jnp.vdot(_j(key), jblur.gaussian_blur(a, 1.0)))(_j(img))
+    np.testing.assert_allclose(ti.grad.numpy(), np.asarray(g_j), rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("measure", MEASURES)
 def test_contrast_and_stats_match_jax(rng, measure):
     img = rng.uniform(0, 2, (30, 44)).astype(np.float32)
