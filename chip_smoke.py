@@ -8,9 +8,14 @@ Phases, in order; any failure exits non-zero:
 2. build: compiles the vote kernels from csrc/iwe.cu with nvcc, prints the seconds;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main path's shapes (front-end rung sweep, back-end window on a crop,
-   old/new split on the full panorama) and at the kernel-alone headroom
-   shape (2^20 events on 240x180), with dropped events, padding and integer
-   coordinates; prints the max error and both times;
+   old/new split on the full panorama, the batched tracker's lanes) and at
+   the kernel-alone headroom shape (2^20 events on 240x180), with dropped
+   events, padding and integer coordinates, and operands shared across
+   images read in place; both K1 variants (P, G; cuda_iwe.plan_vote_fwd)
+   forced at every shape, so P meets band edges on the 384x384 crop. Prints
+   per shape the planner's variant, each variant's device time in turns
+   (G, P, P, G) and K2's, beside the bound in bytes and us, then the
+   wrapper and plain times;
 4. system: CMaxSLAM on the stock ijrr preset, driven through push_events on a
    2.0 s synthetic 240x180 stream at 390k ev/s (make_stream), must keep its
    state on the card, run at least 15 BA windows through both kernels and
@@ -37,8 +42,9 @@ Phases, in order; any failure exits non-zero:
 Before the last line it prints one JSON object with every kernel's route,
 source, launches on each path (the system run of phase 4, the CLI run of
 phase 5, the batched run of phase 6 and the window and replay runs of
-phase 7, each counted from 0), error and times; the last line is
-``{"ok": true, "device": {...}}``. Imports neither jax nor the JAX package.
+phase 7, each counted from 0), error, times and bound, and for K1 the same
+per variant; the last line is ``{"ok": true, "device": {...}}``. Imports
+neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -55,26 +61,39 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# Main-path vote shapes (tag: B images, N events, H x W, kernels checked):
-# the front-end rung sweep and value-and-grad, a back-end window's events on
-# a crop, the old/new split on the ijrr panorama; then the headroom shape,
-# the one at which the JAX package times its kernels alone
+# Main-path vote shapes (tag: B images, N events, H x W, the kernels the
+# paths run at this shape (phase 3 checks both at every shape), rows of the
+# coordinates and of the weights as the paths hand them to K1):
+# the front-end rung sweep (9 rungs share the packet's weights) and
+# value-and-grad, a back-end window's events on a crop, the old/new split on
+# the ijrr panorama (both images share the coordinates); then the headroom
+# shape, the one at which the JAX package times its kernels alone
 # (examples/tpu_kernel_headroom.py), and the only one at which it runs the
 # "rows"/"mixed" VJP orientation that K2 also serves.
 SHAPES = (
-    ("sweep", 9, 10_000, 180, 240, ("fwd",)),
-    ("packet", 1, 10_000, 180, 240, ("fwd", "bwd")),
-    ("crop", 1, 1 << 18, 384, 384, ("fwd", "bwd")),
-    ("split", 2, 1 << 18, 512, 1024, ("fwd",)),
-    ("headroom", 1, 1 << 20, 180, 240, ("fwd", "bwd")),
+    ("sweep", 9, 10_000, 180, 240, ("fwd",), (9, 1)),
+    ("packet", 1, 10_000, 180, 240, ("fwd", "bwd"), (1, 1)),
+    ("crop", 1, 1 << 18, 384, 384, ("fwd", "bwd"), (1, 1)),
+    ("split", 2, 1 << 18, 512, 1024, ("fwd",), (1, 2)),
+    ("headroom", 1, 1 << 20, 180, 240, ("fwd", "bwd"), (1, 1)),
     # Lane-batched front-end (phase 6): the first compacted bucket of the
-    # 2 s stream is 224 packets, times 9 vector-ladder rungs per bracket,
-    # and 224 packets per value-and-grad.
-    ("lanes", 2016, 10_000, 180, 240, ("fwd",)),
-    ("lanegrad", 224, 10_000, 180, 240, ("fwd", "bwd")),
+    # 2 s stream is 224 packets, times 9 vector-ladder rungs per bracket
+    # (each packet's weights shared by its rungs), and 224 packets per
+    # value-and-grad.
+    ("lanes", 2016, 10_000, 180, 240, ("fwd",), (2016, 224)),
+    ("lanegrad", 224, 10_000, 180, 240, ("fwd", "bwd"), (224, 224)),
 )
-# The shape whose times go into the JSON line, per kernel.
-REPORTED = {"fwd": "sweep", "bwd": "crop"}
+# The shape whose times go into the JSON line, per kernel: its widest
+# launch on the paths, the batched tracker's.
+REPORTED = {"fwd": "lanes", "bwd": "lanegrad"}
+# The least time of a kernel: its bytes (each input read once, each output
+# written once) over the H100 SXM's 3.35 TB/s, or its float32 operations
+# over 67 TFLOP/s (non-tensor), whichever is larger. Operations per event:
+# K1 2 floors, 4 differences, 8 products and 4 adds; K2 2 floors, 4
+# differences and 21 products, sums and differences over its four gathers.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+FLOPS_PER_EVENT = {"fwd": 18, "bwd": 27}
 
 
 def _log(msg: str) -> None:
@@ -88,22 +107,48 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _events(rng, b, n, h, w, device):
+def _events(rng, n, h, w, rows, device):
     """Vote inputs like the warps produce: coordinates over the image and
     past its borders, a fifth on integers (the omega = 0 cold start), NaN
-    and infinite coordinates, weight-0 padding at the tail, and weights
-    shared across the batch."""
+    and infinite coordinates, weight-0 padding at the tail. Coordinates are
+    (rows[0], n) and weights (rows[1], n), each row read by a group of
+    images as the paths share them; rows of weights differ, so that a
+    misread group shows."""
     import torch
 
-    px = rng.uniform(-3, w + 3, (b, n)).astype(np.float32)
-    py = rng.uniform(-3, h + 3, (b, n)).astype(np.float32)
+    r_xy, r_w = rows
+    px = rng.uniform(-3, w + 3, (r_xy, n)).astype(np.float32)
+    py = rng.uniform(-3, h + 3, (r_xy, n)).astype(np.float32)
     k = n // 5
     px[:, :k] = np.round(px[:, :k])
     py[:, :k] = np.round(py[:, :k])
     px[:, k:k + 3] = [np.nan, np.inf, -np.inf]
-    wt = np.ones(n, np.float32)
-    wt[-n // 10:] = 0.0  # padding
+    wt = np.ones((r_w, n), np.float32)
+    if r_w > 1:
+        wt *= rng.uniform(0.5, 1.5, (r_w, n)).astype(np.float32)
+    wt[:, -n // 10:] = 0.0  # padding
     return [torch.tensor(a, device=device) for a in (px, py, wt)]
+
+
+def _lead(t, r0: int):
+    """A compact (R, n) operand as (r0, R // r0, n): operands of nested row
+    counts then broadcast against each other as the paths' operands do."""
+    return t.reshape(r0, -1, t.shape[-1])
+
+
+def bound(kernel: str, b: int, n: int, H: int, W: int, rows) -> dict:
+    """The least time of one launch at this shape (see HBM_BYTES_PER_S). K1
+    reads its compact operands (rows[0] coordinate rows, rows[1] weight
+    rows) and writes B images; K2 reads full (B, N) operands and g and
+    writes three (B, N) gradients."""
+    if kernel == "fwd":
+        nbytes = 4 * (n * (2 * rows[0] + rows[1]) + b * H * W)
+    else:
+        nbytes = 4 * (6 * b * n + b * H * W)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = FLOPS_PER_EVENT[kernel] * b * n / FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -121,56 +166,147 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 50) -> tuple:
+    """Device time of one call of ``fn`` (raw launches into preallocated
+    outputs, no allocation, each kernel once per call), in ms, two ways:
+    the mean duration of each kernel that ``reps`` calls ran, summed over
+    the kernels, from torch.profiler (a mean over the records it kept, so a
+    record it drops or repeats does not skew it); and CUDA events around
+    ``reps`` calls back to back over ``reps``, which also count the gaps the
+    host leaves and so bound the first from above. Raises if the profiler
+    records no kernel on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    events_ms = _time_ms(fn, reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total / e.count for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.count)
+    if not us > 0:
+        raise RuntimeError("torch.profiler recorded no kernel time on the card")
+    return us / 1e3, events_ms
+
+
 def check_kernels(rng) -> dict:
-    """Phase 3. Returns per kernel {max_abs_err over all shapes, ms, plain_ms
-    and shape at its REPORTED shape, and the same times at every shape}."""
+    """Phase 3. Returns per kernel {max_abs_err over all shapes and
+    variants, and per shape: the bound, the device times, the wrapper and
+    plain times, and for K1 the planner's plan and each variant's error and
+    device times in turns}."""
     import torch
     from cmax_slam_tpu_torch.ops import cuda_iwe, scatter
 
-    out = {"fwd": {"max_abs_err": 0.0}, "bwd": {"max_abs_err": 0.0}}
-    for tag, b, n, H, W, kernels in SHAPES:
-        px, py, wt = _events(rng, b, n, H, W, "cuda")
-        wx = wt.expand(b, -1).contiguous()
-        ref = scatter.bilinear_accumulate(px, py, wt, H, W)
-        img = scatter.vote(px, py, wt, H, W)
+    out = {"fwd": {"max_abs_err": 0.0, "by_shape": {}},
+           "bwd": {"max_abs_err": 0.0, "by_shape": {}}}
+    attrs = cuda_iwe.device_attrs(torch.device("cuda", 0))
+    _log(f"K1 planner: {attrs[0]} SMs, {attrs[1]} B of shared memory per block (opt-in)")
+    turns = cuda_iwe.VARIANTS + cuda_iwe.VARIANTS[::-1]
+    for tag, b, n, H, W, kernels, rows in SHAPES:
+        px, py, wt = _events(rng, n, H, W, rows, "cuda")
+        r0 = min(rows)
+        full = [cuda_iwe.expand_rows(t, b) for t in (px, py, wt)]
+        ref = scatter.bilinear_accumulate(*full, H, W)
         torch.cuda.synchronize()
         # Atomic adds land in run-dependent order: float32 sums agree to a
         # few ulps of the largest pixel.
         tol = 1e-5 * max(1.0, float(ref.abs().max()))
-        err = float((img - ref).abs().max())
-        if not (img.shape == ref.shape and torch.isfinite(img).all() and err <= tol):
-            raise AssertionError(f"vote_fwd {tag}: max err {err} > {tol}")
-        ms = _time_ms(lambda: cuda_iwe.vote_fwd(px, py, wx, H, W))
-        plain_ms = _time_ms(lambda: scatter.bilinear_accumulate(px, py, wt, H, W))
-        results = {"fwd": (err, ms, plain_ms)}
-        if "bwd" in kernels:
-            # K2 through autograd against the plain version's autograd.
-            g = torch.tensor(rng.normal(size=(b, H, W)).astype(np.float32), device="cuda")
-            grads = []
-            for fn in (scatter.vote, scatter.bilinear_accumulate):
-                leaves = [t.clone().requires_grad_(True) for t in (px, py, wt)]
-                torch.autograd.backward(fn(*leaves, H, W), g)
-                grads.append([t.grad for t in leaves])
+        plans = {v: cuda_iwe.plan_vote_fwd(b, n, H, W, *attrs, variant=v)
+                 for v in (None,) + cuda_iwe.VARIANTS}
+        errs = {}
+        for v in plans:  # the planner's route through ops/scatter.vote, then each forced
+            if v is None:
+                img = scatter.vote(*(_lead(t, r0) for t in (px, py, wt)), H, W).reshape(b, H, W)
+            else:
+                img = cuda_iwe.vote_fwd(px, py, wt, H, W, b, variant=v)
             torch.cuda.synchronize()
-            # Gathers with no atomics: only FMA contraction differs, but dw
-            # sums B gathers of a broadcast weight.
-            tol = 1e-5 * b * max(1.0, float(g.abs().max()))
-            err = max(float((x - y).abs().max()) for x, y in zip(*grads))
-            if not (all(torch.isfinite(x).all() for x in grads[0]) and err <= tol):
-                raise AssertionError(f"vote_bwd {tag}: max err {err} > {tol}")
-            ms = _time_ms(lambda: cuda_iwe.vote_bwd(px, py, wx, g))
+            err = float((img - ref).abs().max())
+            if not (img.shape == ref.shape and torch.isfinite(img).all() and err <= tol):
+                raise AssertionError(f"vote_fwd {tag} variant {plans[v].variant}"
+                                     f"{'' if v else ' (planned)'}: max err {err} > {tol}")
+            errs[v or "planned"] = err
+        del img, ref
+        img = torch.empty((b, H, W), device="cuda")
+        dev = {v: [] for v in cuda_iwe.VARIANTS}
+        evs = {v: [] for v in cuda_iwe.VARIANTS}
+        for v in turns:
+            plan = plans[v]
+
+            def launch(plan=plan):
+                if plan.variant != "P":
+                    img.zero_()
+                cuda_iwe.launch_fwd(plan, px, py, wt, img, b, H, W)
+
+            kern, ev = device_ms(launch)
+            dev[v].append(kern)
+            evs[v].append(ev)
+        del img
+        ms = _time_ms(lambda: cuda_iwe.vote_fwd(px, py, wt, H, W, b))
+        plain_ms = _time_ms(lambda: scatter.bilinear_accumulate(*full, H, W))
+        planned = plans[None]
+        bd = bound("fwd", b, n, H, W, rows)
+        dev_ms = float(np.mean(dev[planned.variant]))
+        entry = {"plan": planned._asdict(), **bd, "device_ms": dev_ms, "ms": ms,
+                 "plain_ms": plain_ms, "variants": {
+                     v: {"max_abs_err": errs[v], "device_ms": dev[v], "events_ms": evs[v]}
+                     for v in cuda_iwe.VARIANTS}}
+        _log(f"vote_fwd {tag:8s} B={b} N={n} {H}x{W} rows {rows}: planner "
+             f"{planned.variant} ({planned.rows} rows x {planned.bands} bands, "
+             f"{planned.smem_bytes} B); max_abs_err {errs['planned']:.3e} planned, "
+             + ", ".join(f"{v} {errs[v]:.3e} ({plans[v].bands} bands)"
+                         for v in cuda_iwe.VARIANTS)
+             + f" (tol {tol:.3e}); device ms in turns "
+             + ", ".join(f"{v} {a:.4f}/{c:.4f} (events {evs[v][0]:.4f}/{evs[v][1]:.4f})"
+                         for v, (a, c) in dev.items())
+             + f"; bound {bd['bytes'] / 1e6:.3f} MB, {bd['bound_ms'] * 1e3:.2f} us "
+             f"({bd['bound_by']}), planned at {bd['bound_ms'] / dev_ms:.1%} of it; "
+             f"wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        out["fwd"]["max_abs_err"] = max([out["fwd"]["max_abs_err"], *errs.values()])
+        out["fwd"]["by_shape"][tag] = entry
+
+        # K2 through autograd (Vote.backward: grouped operands expanded, K2,
+        # gradients summed over each group) against the plain version's autograd.
+        g = torch.tensor(rng.normal(size=(b, H, W)).astype(np.float32), device="cuda")
+        grads = []
+        for fn in (scatter.vote, scatter.bilinear_accumulate):
             leaves = [t.clone().requires_grad_(True) for t in (px, py, wt)]
-            plain_out = scatter.bilinear_accumulate(*leaves, H, W)
-            plain_ms = _time_ms(
-                lambda: torch.autograd.grad(plain_out, leaves, g, retain_graph=True))
-            results["bwd"] = (err, ms, plain_ms)
-        for k, (err, ms, plain_ms) in results.items():
-            _log(f"vote_{k} {tag:6s} B={b} N={n} {H}x{W}: max_abs_err={err:.3e} "
-                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err)
-            out[k].setdefault("by_shape", {})[tag] = {"ms": ms, "plain_ms": plain_ms}
-            if REPORTED[k] == tag:
-                out[k].update(ms=ms, plain_ms=plain_ms, shape=f"{b}x{n}@{H}x{W}")
+            res = fn(*(_lead(t, r0) for t in leaves), H, W)
+            torch.autograd.backward(res, g.reshape(res.shape))
+            grads.append([t.grad for t in leaves])
+        torch.cuda.synchronize()
+        # Gathers with no atomics: only FMA contraction differs, but dw
+        # sums B gathers of a broadcast weight.
+        tol = 1e-5 * b * max(1.0, float(g.abs().max()))
+        err = max(float((x - y).abs().max()) for x, y in zip(*grads))
+        if not (all(torch.isfinite(x).all() for x in grads[0]) and err <= tol):
+            raise AssertionError(f"vote_bwd {tag}: max err {err} > {tol}")
+        del grads, res
+        dpx, dpy, dw = (torch.empty_like(full[0]) for _ in range(3))
+        dev_bwd, ev_bwd = device_ms(lambda: cuda_iwe.launch_bwd(*full, g, dpx, dpy, dw))
+        del dpx, dpy, dw
+        ms = _time_ms(lambda: cuda_iwe.vote_bwd(*full, g))
+        leaves = [t.clone().requires_grad_(True) for t in full]
+        plain_out = scatter.bilinear_accumulate(*leaves, H, W)
+        plain_ms = _time_ms(
+            lambda: torch.autograd.grad(plain_out, leaves, g, retain_graph=True))
+        del plain_out, leaves
+        bd = bound("bwd", b, n, H, W, rows)
+        _log(f"vote_bwd {tag:8s} B={b} N={n} {H}x{W}: max_abs_err={err:.3e} (tol {tol:.3e}); "
+             f"device {dev_bwd:.4f} ms (events {ev_bwd:.4f}); bound {bd['bytes'] / 1e6:.3f} MB, "
+             f"{bd['bound_ms'] * 1e3:.2f} us ({bd['bound_by']}), at "
+             f"{bd['bound_ms'] / dev_bwd:.1%} of it; wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms"
+             f"{'' if 'bwd' in kernels else ' (shape not on a K2 path)'}")
+        out["bwd"]["max_abs_err"] = max(out["bwd"]["max_abs_err"], err)
+        out["bwd"]["by_shape"][tag] = {**bd, "device_ms": dev_bwd, "events_ms": ev_bwd,
+                                       "ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+        del full, g
+    for k, v in out.items():
+        rep = v["by_shape"][REPORTED[k]]
+        b, n, H, W = next(s[1:5] for s in SHAPES if s[0] == REPORTED[k])
+        v.update(shape=f"{REPORTED[k]} {b}x{n}@{H}x{W}", ms=rep["ms"], device_ms=rep["device_ms"],
+                 plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"])
     return out
 
 
@@ -412,9 +548,9 @@ def run_batched(device: str = "cuda", seq_log=None, duration: float = 2.0):
     widest, rounds = [0], [0]
     vote_fwd, run_round = cuda_iwe.vote_fwd, batched._run_round
 
-    def widest_vote(px, *a, **kw):
-        widest[0] = max(widest[0], px.shape[0])
-        return vote_fwd(px, *a, **kw)
+    def widest_vote(px, py, w, height, width, b=None, **kw):
+        widest[0] = max(widest[0], px.shape[0] if b is None else b)
+        return vote_fwd(px, py, w, height, width, b, **kw)
 
     def counted_round(*a, **kw):
         rounds[0] += 1
@@ -508,7 +644,7 @@ def run_window_shard(device: str = "cuda", devices=("cuda:0", "cuda:0"),
             torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) / reps * 1e3
 
-    checks, launches = {}, {"fwd": 0, "bwd": 0}
+    checks, launches = {}, dict.fromkeys(cuda_iwe.LAUNCHES, 0)
     for hw in panos:
         win = make_window(ev, omega, calib, hw, device)
         pano = EquirectCamera(width=hw[1], height=hw[0])
@@ -620,14 +756,33 @@ def main() -> int:
                 "bwd": "cmax_slam_tpu/ops/pallas_iwe.py:307 (_vjp_bwd, pallas_call at :350; "
                        "kernel bodies _bwd_kernel_lanes :200 and _bwd_kernel :149)"}
     names = {"fwd": "vote_fwd", "bwd": "vote_bwd"}
-    print(json.dumps({"kernels": [
-        {"name": names[k], "route": "cuda", "source": src, "replaces": replaces[k],
-         "launches": launches[k], "launches_by_path": {
-             "system": launches[k], "cli": cli_launches[k], "batched": batched_launches[k],
-             "window_shard": shard_launches[k], "replay": replay_launches[k]},
-         "max_abs_err": v["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
-         "shape": v["shape"], "by_shape": v["by_shape"]}
-        for k, v in kernels.items()]}))
+    paths = {"system": launches, "cli": cli_launches, "batched": batched_launches,
+             "window_shard": shard_launches, "replay": replay_launches}
+
+    def by_path(key):
+        return {p: counts[key] for p, counts in paths.items()}
+
+    rows = []
+    for k, v in kernels.items():
+        rep = v["by_shape"][REPORTED[k]]
+        row = {"name": names[k], "route": "cuda", "source": src, "replaces": replaces[k],
+               "launches": launches[k], "launches_by_path": by_path(k),
+               "max_abs_err": v["max_abs_err"], "ms": v["ms"], "device_ms": v["device_ms"],
+               "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+               "library_ms": None,
+               "shape": v["shape"], "by_shape": {
+                   tag: {key: s[key] for key in ("device_ms", "ms", "plain_ms", "bound_ms")}
+                   | ({"plan": s["plan"]["variant"]} if k == "fwd" else {})
+                   for tag, s in v["by_shape"].items()}}
+        if k == "fwd":
+            row["variants"] = {
+                var: {"launches": launches[f"fwd_{var}"],
+                      "launches_by_path": by_path(f"fwd_{var}"),
+                      "device_ms": float(np.mean(rep["variants"][var]["device_ms"])),
+                      "by_shape": {tag: s["variants"][var] for tag, s in v["by_shape"].items()}}
+                for var in cuda_iwe.VARIANTS}
+        rows.append(row)
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

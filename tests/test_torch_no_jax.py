@@ -61,7 +61,8 @@ def test_importing_every_module_needs_no_jax_and_builds_nothing(tmp_path):
         "parallel.window_shard", "parallel.replay")}
     assert expected <= set(res["names"])
     assert not res["preloaded"]
-    assert not res["lib"] and res["launches"] == {"fwd": 0, "bwd": 0}
+    assert not res["lib"] and res["launches"] == {
+        "fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0}
     assert res["built"] == before
 
 

@@ -1,0 +1,271 @@
+"""The K1 planner and the operand plumbing around the vote kernels
+(cmax_slam_tpu_torch/ops/cuda_iwe.py), on the CPU: nothing here needs the
+card, and nothing detects one.
+
+(a) ``plan_vote_fwd`` at every chip_smoke.py shape and at 2048x4096, for an
+    H100 (132 SMs, 232 448 B of opt-in shared memory per block, passed
+    explicitly): bands of whole rows cover every row once, fit the shared
+    memory, and the variant is the one the thresholds pick.
+(b) A plain-torch emulation of variant P built from the planner's output
+    (per band, the taps whose row lies in the band, accumulated and
+    stitched) equals the port's plain vote and the JAX package's vote, to
+    1e-5 of the largest pixel, on events placed on band edges, on integers,
+    NaN and infinite, and with weight-0 padding.
+(c) ``compact_rows``: broadcasts over trailing lead dimensions reach K1 as
+    row groups with no copy; other broadcasts are materialized.
+(d) ``Vote``'s backward on grouped operands (K1/K2 replaced by their plain
+    versions, since the CPU has no kernels): gradients summed over each
+    group equal autograd's through ``expand``.
+(e) An empty batch gives empty images without reaching a kernel.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from cmax_slam_tpu.ops import scatter as jscatter
+from cmax_slam_tpu_torch.ops import cuda_iwe, scatter
+
+torch.set_num_threads(1)
+
+SMS, OPTIN = 132, 232_448  # H100 SXM: SMs, cudaDevAttrMaxSharedMemoryPerBlockOptin
+
+# The planner's pick at each shape, with the thresholds measured on an
+# H100 (PERF.md): lanes and lanegrad are wide launches (P); sweep, packet,
+# crop, split and headroom have fewer than P_MIN_IMAGES images (G), and
+# split and 2048x4096 need more bands than P_MAX_BANDS (G).
+EXPECTED = {"sweep": "G", "packet": "G", "crop": "G", "split": "G", "headroom": "G",
+            "lanes": "P", "lanegrad": "P", "pano2048": "G"}
+SHAPES = [(tag, b, n, H, W) for tag, b, n, H, W, *_ in chip_smoke.SHAPES] + [
+    ("pano2048", 1, 84_700, 2048, 4096)]
+
+
+def _band_rows_covered(plan, H):
+    rows = []
+    for band in range(plan.bands):
+        r0 = band * plan.rows
+        rows += range(r0, min(H, r0 + plan.rows))
+    return rows
+
+
+@pytest.mark.parametrize("tag,b,n,H,W", SHAPES, ids=[s[0] for s in SHAPES])
+def test_planner_bands_cover_every_row_once_and_pick_the_variant(tag, b, n, H, W):
+    plan = cuda_iwe.plan_vote_fwd(b, n, H, W, SMS, OPTIN)
+    assert plan.variant == EXPECTED[tag]
+    forced = cuda_iwe.plan_vote_fwd(b, n, H, W, SMS, OPTIN, variant="P")
+    assert forced.variant == "P" and forced.bands >= 1
+    assert _band_rows_covered(forced, H) == list(range(H))  # each row once, in order
+    assert (forced.bands - 1) * forced.rows < H  # no empty band
+    assert forced.smem_bytes == 4 * forced.rows * W <= OPTIN
+    if plan.variant == "P":  # one wave of blocks, unless the tallest bands exceed it
+        assert forced == plan
+        tall = cuda_iwe.band_rows(H, W, OPTIN)[1]
+        assert b >= cuda_iwe.P_MIN_IMAGES and b * plan.bands <= max(SMS, b * tall)
+    if plan.variant == "G":
+        assert plan == ("G", 0, 0, 0)
+
+
+def test_planner_picks_by_shape_alone_and_refuses_what_it_cannot_band():
+    # A 180x240 image is one band of 172 800 B. P from 24 images up, its
+    # bands thinned (up to P_MAX_BANDS) while images x bands fit one wave of
+    # 132 blocks; below 24 images, G, however dense the events.
+    def plan(b, n=10_000):
+        return cuda_iwe.plan_vote_fwd(b, n, 180, 240, SMS, OPTIN)
+
+    assert plan(2016)[:3] == plan(132)[:3] == plan(67)[:3] == ("P", 180, 1)
+    assert plan(66)[:3] == plan(48)[:3] == ("P", 90, 2)
+    assert plan(44)[:3] == plan(34)[:3] == ("P", 60, 3)
+    assert plan(33)[:3] == plan(24)[:3] == ("P", 45, 4)
+    assert plan(23).variant == plan(1, 1 << 20).variant == plan(1, 1 << 24).variant == "G"
+    assert plan(24, 1 << 20) == plan(24)
+    # Wide launches of larger images: P up to P_MAX_BANDS bands, G beyond.
+    assert cuda_iwe.plan_vote_fwd(24, 1 << 18, 384, 384, SMS, OPTIN)[:3] == ("P", 96, 4)
+    assert cuda_iwe.plan_vote_fwd(24, 1 << 18, 512, 1024, SMS, OPTIN).variant == "G"
+    assert cuda_iwe.plan_vote_fwd(24, 1 << 18, 2048, 4096, SMS, OPTIN).variant == "G"
+    # A row wider than the shared memory: G, and forcing a band variant raises.
+    assert cuda_iwe.plan_vote_fwd(4096, 10, 4, 100_000, SMS, OPTIN).variant == "G"
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_iwe.plan_vote_fwd(1, 10, 4, 100_000, SMS, OPTIN, variant="P")
+    with pytest.raises(ValueError, match="unknown"):
+        cuda_iwe.plan_vote_fwd(1, 10, 8, 8, SMS, OPTIN, variant="PS")
+
+
+def emulate_bands(px, py, w, plan, H, W):
+    """P in plain torch, from the planner's output: each band's block keeps
+    the taps of the events whose row lies in its band (in-bounds test on the
+    global floor), sums them in a band-local image, and the bands' images
+    are stitched. Every pixel is written once, as P's plain stores do."""
+    b, _ = px.shape
+    out = torch.full((b, H, W), float("nan"))
+    fx, fy = torch.floor(px), torch.floor(py)
+    live = (fx >= 1) & (fx < W - 2) & (fy >= 1) & (fy < H - 2) & (w != 0)
+    dx, dy = px - fx, py - fy
+    for band in range(plan.bands):
+        r0 = band * plan.rows
+        nrows = min(plan.rows, H - r0)
+        acc = torch.zeros(b, nrows * W)
+        for oy, wy in ((0, 1 - dy), (1, dy)):
+            row = fy + oy - r0
+            for ox, wx in ((0, 1 - dx), (1, dx)):
+                keep = live & (row >= 0) & (row < nrows)
+                idx = torch.where(keep, row * W + fx + ox, 0.0).long()
+                acc.scatter_add_(1, idx, torch.where(keep, w * wx * wy, 0.0))
+        assert bool(out[:, r0:r0 + nrows].isnan().all())  # no row stored twice
+        out[:, r0:r0 + nrows] = acc.reshape(b, nrows, W)
+    return out
+
+
+def _edge_events(rng, b, n, H, W, plan):
+    """Events with a third on the rows next to each band edge (floor(py) =
+    r0 - 1 and r0, fractional and integer), a fifth of the rest on integer
+    coordinates, NaN and infinite coordinates, weight-0 padding."""
+    px = rng.uniform(-3, W + 3, (b, n)).astype(np.float32)
+    py = rng.uniform(-3, H + 3, (b, n)).astype(np.float32)
+    edges = np.arange(1, plan.bands) * plan.rows
+    k = n // 3
+    on_edge = rng.choice(edges, (b, k)) - rng.integers(0, 2, (b, k))
+    frac = np.where(rng.uniform(size=(b, k)) < 0.25, 0.0, rng.uniform(size=(b, k)))
+    py[:, :k] = (on_edge + frac).astype(np.float32)
+    m = k + (n - k) // 5
+    px[:, k:m] = np.round(px[:, k:m])
+    py[:, k:m] = np.round(py[:, k:m])
+    px[:, m:m + 3] = [np.nan, np.inf, -np.inf]
+    py[:, m + 3:m + 5] = [np.nan, -np.inf]
+    w = rng.uniform(0.5, 1.5, (b, n)).astype(np.float32)
+    w[:, -n // 10:] = 0.0
+    return px, py, w
+
+
+CASES = {
+    # (b, n, H, W, smem_optin): the 384x384 crop's bands forced to P with
+    # the H100's shared memory; small images with a small shared memory, so
+    # that P cuts them into many bands (the last one ragged in "ragged"),
+    # against JAX too.
+    "crop_P": (1, 20_000, 384, 384, OPTIN),
+    "small_P": (2, 3_000, 40, 56, 4 * 56 * 7),
+    "ragged": (3, 30_000, 41, 56, 4 * 56 * 5),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_band_emulation_equals_the_plain_and_jax_votes(rng, case):
+    b, n, H, W, optin = CASES[case]
+    plan = cuda_iwe.plan_vote_fwd(b, n, H, W, SMS, optin, variant="P")
+    assert plan.variant == "P" and plan.bands >= 3
+    px, py, w = _edge_events(rng, b, n, H, W, plan)
+    tpx, tpy, tw = (torch.tensor(a) for a in (px, py, w))
+    got = emulate_bands(tpx, tpy, tw, plan, H, W)
+    ref = scatter.bilinear_accumulate(tpx, tpy, tw, H, W)
+    tol = 1e-5 * float(ref.abs().max())
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=tol)
+    if H * W <= 4096:
+        for i in range(b):
+            jimg = jscatter.bilinear_accumulate(jnp.asarray(px[i]), jnp.asarray(py[i]),
+                                                jnp.asarray(w[i]), height=H, width=W)
+            np.testing.assert_allclose(got[i].numpy(), np.asarray(jimg), rtol=0, atol=tol)
+    # The band edges carried votes from both sides.
+    edge_rows = torch.arange(1, plan.bands) * plan.rows
+    assert float(ref[:, edge_rows - 1].abs().sum()) > 0 and float(ref[:, edge_rows].abs().sum()) > 0
+
+
+def test_compact_rows_reads_trailing_broadcasts_in_place():
+    P, M, N = 3, 4, 50
+    w = torch.rand(P, 1, N)
+    c = cuda_iwe.compact_rows(w, (P, M), N)
+    assert c.shape == (P, N) and (P * M) // c.shape[0] == M
+    assert c.data_ptr() == w.data_ptr()  # no copy
+    px = torch.rand(P, M, N)
+    c = cuda_iwe.compact_rows(px, (P, M), N)
+    assert c.shape == (P * M, N) and c.data_ptr() == px.data_ptr()
+
+
+def test_compact_rows_shares_coordinates_across_the_split():
+    N = 50
+    px = torch.rand(N)
+    c = cuda_iwe.compact_rows(px, (2,), N)
+    assert c.shape == (1, N) and 2 // c.shape[0] == 2 and c.data_ptr() == px.data_ptr()
+    assert cuda_iwe.compact_rows(torch.rand(N), (), N).shape == (1, N)
+
+
+def test_compact_rows_materializes_a_leading_broadcast():
+    P, M, N = 3, 4, 50
+    w = torch.rand(1, M, N)  # image p * M + m reads row m: not a row group
+    c = cuda_iwe.compact_rows(w, (P, M), N)
+    assert c.shape == (P * M, N) and c.data_ptr() != w.data_ptr()
+    torch.testing.assert_close(c, w.expand(P, M, N).reshape(P * M, N), rtol=0, atol=0)
+    # a weight broadcast along the events is materialized too
+    c = cuda_iwe.compact_rows(torch.ones(P, M, 1), (P, M), N)
+    assert c.shape == (P * M, N)
+
+
+def _plain_kernels(monkeypatch, seen):
+    """Replace K1 and K2 by their plain versions, recording what they get."""
+
+    def fwd(px, py, w, height, width, b=None, **kw):
+        seen.append(("fwd", b, [(t.shape, t.data_ptr()) for t in (px, py, w)]))
+        full = [cuda_iwe.expand_rows(t, b) for t in (px, py, w)]
+        return scatter.bilinear_accumulate(*full, height, width)
+
+    def bwd(px, py, w, g):
+        assert all(t.is_contiguous() for t in (px, py, w, g))  # as K2 requires
+        seen.append(("bwd", None, [tuple(t.shape) for t in (px, py, w)]))
+        leaves = [t.detach().requires_grad_(True) for t in (px, py, w)]
+        with torch.enable_grad():  # backward runs with grad mode off
+            img = scatter.bilinear_accumulate(*leaves, g.shape[1], g.shape[2])
+        return torch.autograd.grad(img, leaves, g)
+
+    monkeypatch.setattr(cuda_iwe, "vote_fwd", fwd)
+    monkeypatch.setattr(cuda_iwe, "vote_bwd", bwd)
+
+
+@pytest.mark.parametrize("layout", ["lanes", "split", "leading"])
+def test_grouped_backward_equals_autograd_through_expand(rng, monkeypatch, layout):
+    H, W, N, P, M = 24, 32, 400, 3, 4
+    xy_shape, w_shape = {
+        "lanes": ((P, M, N), (P, 1, N)),  # rungs share each lane's weights
+        "split": ((N,), (2, N)),  # both images share the coordinates
+        "leading": ((P, M, N), (1, M, N)),  # materialized, for contrast
+    }[layout]
+    px = rng.uniform(-2, W + 2, xy_shape).astype(np.float32)
+    py = rng.uniform(-2, H + 2, xy_shape).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, w_shape).astype(np.float32)
+    lead = torch.broadcast_shapes(px.shape, w.shape)[:-1]
+    key = torch.tensor(rng.normal(size=(*lead, H, W)).astype(np.float32))
+
+    def grads(fn):
+        leaves = [torch.tensor(a, requires_grad=True) for a in (px, py, w)]
+        img = fn(*leaves, H, W)
+        torch.sum(key * img).backward()
+        return img.detach(), [t.grad for t in leaves], leaves
+
+    seen = []
+    _plain_kernels(monkeypatch, seen)
+    img, got, leaves = grads(cuda_iwe.bilinear_accumulate_cuda)
+    ref_img, ref, _ = grads(scatter.bilinear_accumulate)
+    torch.testing.assert_close(img, ref_img, rtol=0, atol=1e-5)
+    for a, r in zip(got, ref):
+        assert a.shape == r.shape
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+    (_, b, fwd_ops), (_, _, bwd_shapes) = seen
+    B = int(np.prod(lead))
+    assert b == B and bwd_shapes == [(B, N)] * 3  # K2 gets full operands
+    w_rows, w_ptr = fwd_ops[2]
+    if layout == "lanes":
+        assert w_rows == (P, N)
+    if layout == "split":
+        assert fwd_ops[0][0] == (1, N) and w_rows == (2, N)
+    if layout == "leading":
+        assert w_rows == (B, N)
+    # Read in place unless materialized.
+    assert (w_ptr == leaves[2].data_ptr()) == (layout != "leading")
+
+
+@pytest.mark.parametrize("shape", [(0, 50), (2, 0, 50), (3, 0)])
+def test_empty_batch_gives_empty_images(shape):
+    H, W = 12, 16
+    px = torch.zeros(shape)
+    img = cuda_iwe.bilinear_accumulate_cuda(px, px, torch.ones(shape[-1:]), H, W)
+    assert img.shape == (*shape[:-1], H, W) and not img.any()
+    assert img.shape == scatter.bilinear_accumulate(px, px, torch.ones(shape[-1:]), H, W).shape
