@@ -12,10 +12,19 @@ Phases, in order; any failure exits non-zero:
    the kernel-alone headroom shape (2^20 events on 240x180), with dropped
    events, padding and integer coordinates, and operands shared across
    images read in place; both K1 variants (P, G; cuda_iwe.plan_vote_fwd)
-   forced at every shape, so P meets band edges on the 384x384 crop. Prints
-   per shape the planner's variant, each variant's device time in turns
-   (G, P, P, G) and K2's, beside the bound in bytes and us, then the
-   wrapper and plain times;
+   forced at every shape, so P meets band edges on the 384x384 crop, K2's G
+   forced at every shape and its S (cuda_iwe.plan_vote_bwd) at every shape
+   whose image it stages whole (not the 384x384 crop or the 512x1024
+   panorama), and the planners' picks through autograd. K2 runs in two
+   modes: "full" (dw too, the TPU kernel's whole function) and "paths" (no
+   dw, as every path calls it, weights read in place); a small unaligned
+   shape with a ragged row end checks the scalar loads, and a launch of
+   more than 2^31 events G's 64-bit indexing. Prints per shape the
+   planners' variants, each
+   variant's device time in turns (G, P, P, G; G, S, S, G per K2 mode)
+   beside the bound in bytes and us, the launch floor (an empty kernel's
+   device time), then the wrapper and plain times and, for K2, the
+   bilinear gather of F.grid_sample as a yardstick;
 4. system: CMaxSLAM on the stock ijrr preset, driven through push_events on a
    2.0 s synthetic 240x180 stream at 390k ev/s (make_stream), must keep its
    state on the card, run at least 15 BA windows through both kernels and
@@ -42,8 +51,8 @@ Phases, in order; any failure exits non-zero:
 Before the last line it prints one JSON object with every kernel's route,
 source, launches on each path (the system run of phase 4, the CLI run of
 phase 5, the batched run of phase 6 and the window and replay runs of
-phase 7, each counted from 0), error, times and bound, and for K1 the same
-per variant; the last line is ``{"ok": true, "device": {...}}``. Imports
+phase 7, each counted from 0), error, times and bound, and the same per
+variant; the last line is ``{"ok": true, "device": {...}}``. Imports
 neither jax nor the JAX package.
 """
 
@@ -63,7 +72,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Main-path vote shapes (tag: B images, N events, H x W, the kernels the
 # paths run at this shape (phase 3 checks both at every shape), rows of the
-# coordinates and of the weights as the paths hand them to K1):
+# coordinates and of the weights as the paths hand them to K1 and K2):
 # the front-end rung sweep (9 rungs share the packet's weights) and
 # value-and-grad, a back-end window's events on a crop, the old/new split on
 # the ijrr panorama (both images share the coordinates); then the headroom
@@ -94,6 +103,9 @@ REPORTED = {"fwd": "lanes", "bwd": "lanegrad"}
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 FLOPS_PER_EVENT = {"fwd": 18, "bwd": 27}
+# K2's modes: "full" writes dw too (the TPU kernel's whole function),
+# "paths" does not (as every path calls it: no path differentiates weights).
+BWD_MODES = {"full": True, "paths": False}
 
 
 def _log(msg: str) -> None:
@@ -130,21 +142,37 @@ def _events(rng, n, h, w, rows, device):
     return [torch.tensor(a, device=device) for a in (px, py, wt)]
 
 
+def _dropped(n: int):
+    """The events that _events drops in every row: NaN and infinite px, and
+    the weight-0 padding."""
+    import torch
+
+    k = n // 5
+    dropped = torch.zeros(n, dtype=torch.bool, device="cuda")
+    dropped[k:k + 3] = True
+    dropped[n - n // 10:] = True
+    return dropped
+
+
 def _lead(t, r0: int):
     """A compact (R, n) operand as (r0, R // r0, n): operands of nested row
     counts then broadcast against each other as the paths' operands do."""
     return t.reshape(r0, -1, t.shape[-1])
 
 
-def bound(kernel: str, b: int, n: int, H: int, W: int, rows) -> dict:
+def bound(kernel: str, b: int, n: int, H: int, W: int, rows, mode: str = "full") -> dict:
     """The least time of one launch at this shape (see HBM_BYTES_PER_S). K1
     reads its compact operands (rows[0] coordinate rows, rows[1] weight
-    rows) and writes B images; K2 reads full (B, N) operands and g and
-    writes three (B, N) gradients."""
+    rows) and writes B images. K2 in "full" mode is counted as it was
+    before it read compact operands: three full (B, N) operands and g read,
+    three (B, N) gradients written; in "paths" mode as that call moves
+    bytes: the compact operands and g read, dpx and dpy written."""
     if kernel == "fwd":
         nbytes = 4 * (n * (2 * rows[0] + rows[1]) + b * H * W)
-    else:
+    elif mode == "full":
         nbytes = 4 * (6 * b * n + b * H * W)
+    else:
+        nbytes = 4 * (n * (2 * rows[0] + rows[1]) + b * H * W + 2 * b * n)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = FLOPS_PER_EVENT[kernel] * b * n / FP32_FLOPS * 1e3
     return {"bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
@@ -173,42 +201,64 @@ def device_ms(fn, reps: int = 50) -> tuple:
     the kernels, from torch.profiler (a mean over the records it kept, so a
     record it drops or repeats does not skew it); and CUDA events around
     ``reps`` calls back to back over ``reps``, which also count the gaps the
-    host leaves and so bound the first from above. Raises if the profiler
-    records no kernel on the card."""
+    host leaves and so bound the first from above. A profiler session that
+    records no kernel is repeated (one in ~100 did, on an H100); raises if
+    three in a row record none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     events_ms = _time_ms(fn, reps)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total / e.count for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and e.count)
-    if not us > 0:
-        raise RuntimeError("torch.profiler recorded no kernel time on the card")
-    return us / 1e3, events_ms
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total / e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and e.count)
+        if us > 0:
+            return us / 1e3, events_ms
+    raise RuntimeError("torch.profiler recorded no kernel time on the card")
+
+
+def _plain_grads(px, py, wt, g, H, W, r0):
+    """Autograd of the plain vote on the compact operands, broadcast to
+    their images as the paths' operands are (``_lead``): every gradient
+    summed over its operand's row group."""
+    import torch
+    from cmax_slam_tpu_torch.ops import scatter
+
+    leaves = [t.clone().requires_grad_(True) for t in (px, py, wt)]
+    res = scatter.bilinear_accumulate(*(_lead(t, r0) for t in leaves), H, W)
+    return leaves, res, torch.autograd.grad(res, leaves, g.reshape(res.shape),
+                                            retain_graph=True)
 
 
 def check_kernels(rng) -> dict:
     """Phase 3. Returns per kernel {max_abs_err over all shapes and
     variants, and per shape: the bound, the device times, the wrapper and
-    plain times, and for K1 the planner's plan and each variant's error and
-    device times in turns}."""
+    plain times, the planner's plan and each variant's error and device
+    times in turns; for K2 per mode, with the launch floor and the gather
+    yardstick}."""
     import torch
     from cmax_slam_tpu_torch.ops import cuda_iwe, scatter
 
     out = {"fwd": {"max_abs_err": 0.0, "by_shape": {}},
            "bwd": {"max_abs_err": 0.0, "by_shape": {}}}
-    attrs = cuda_iwe.device_attrs(torch.device("cuda", 0))
-    _log(f"K1 planner: {attrs[0]} SMs, {attrs[1]} B of shared memory per block (opt-in)")
+    dev = torch.device("cuda", 0)
+    attrs = cuda_iwe.device_attrs(dev)
+    _log(f"planners: {attrs[0]} SMs, {attrs[1]} B of shared memory per block (opt-in)")
+    floor = [device_ms(lambda: cuda_iwe.launch_noop(dev)) for _ in range(2)]
+    floor_ms = float(np.mean([f[0] for f in floor]))
+    _log(f"launch floor (empty kernel): device {floor[0][0]:.4f}/{floor[1][0]:.4f} ms "
+         f"(events {floor[0][1]:.4f}/{floor[1][1]:.4f})")
+    out["bwd"]["floor_ms"] = floor_ms
     turns = cuda_iwe.VARIANTS + cuda_iwe.VARIANTS[::-1]
     for tag, b, n, H, W, kernels, rows in SHAPES:
         px, py, wt = _events(rng, n, H, W, rows, "cuda")
         r0 = min(rows)
-        full = [cuda_iwe.expand_rows(t, b) for t in (px, py, wt)]
-        ref = scatter.bilinear_accumulate(*full, H, W)
+        grouped = [_lead(t, r0) for t in (px, py, wt)]
+        ref = scatter.bilinear_accumulate(*grouped, H, W).reshape(b, H, W)
         torch.cuda.synchronize()
         # Atomic adds land in run-dependent order: float32 sums agree to a
         # few ulps of the largest pixel.
@@ -229,7 +279,7 @@ def check_kernels(rng) -> dict:
             errs[v or "planned"] = err
         del img, ref
         img = torch.empty((b, H, W), device="cuda")
-        dev = {v: [] for v in cuda_iwe.VARIANTS}
+        dev_t = {v: [] for v in cuda_iwe.VARIANTS}
         evs = {v: [] for v in cuda_iwe.VARIANTS}
         for v in turns:
             plan = plans[v]
@@ -240,17 +290,17 @@ def check_kernels(rng) -> dict:
                 cuda_iwe.launch_fwd(plan, px, py, wt, img, b, H, W)
 
             kern, ev = device_ms(launch)
-            dev[v].append(kern)
+            dev_t[v].append(kern)
             evs[v].append(ev)
         del img
         ms = _time_ms(lambda: cuda_iwe.vote_fwd(px, py, wt, H, W, b))
-        plain_ms = _time_ms(lambda: scatter.bilinear_accumulate(*full, H, W))
+        plain_ms = _time_ms(lambda: scatter.bilinear_accumulate(*grouped, H, W))
         planned = plans[None]
         bd = bound("fwd", b, n, H, W, rows)
-        dev_ms = float(np.mean(dev[planned.variant]))
+        dev_ms = float(np.mean(dev_t[planned.variant]))
         entry = {"plan": planned._asdict(), **bd, "device_ms": dev_ms, "ms": ms,
                  "plain_ms": plain_ms, "variants": {
-                     v: {"max_abs_err": errs[v], "device_ms": dev[v], "events_ms": evs[v]}
+                     v: {"max_abs_err": errs[v], "device_ms": dev_t[v], "events_ms": evs[v]}
                      for v in cuda_iwe.VARIANTS}}
         _log(f"vote_fwd {tag:8s} B={b} N={n} {H}x{W} rows {rows}: planner "
              f"{planned.variant} ({planned.rows} rows x {planned.bands} bands, "
@@ -259,55 +309,210 @@ def check_kernels(rng) -> dict:
                          for v in cuda_iwe.VARIANTS)
              + f" (tol {tol:.3e}); device ms in turns "
              + ", ".join(f"{v} {a:.4f}/{c:.4f} (events {evs[v][0]:.4f}/{evs[v][1]:.4f})"
-                         for v, (a, c) in dev.items())
+                         for v, (a, c) in dev_t.items())
              + f"; bound {bd['bytes'] / 1e6:.3f} MB, {bd['bound_ms'] * 1e3:.2f} us "
              f"({bd['bound_by']}), planned at {bd['bound_ms'] / dev_ms:.1%} of it; "
              f"wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms")
         out["fwd"]["max_abs_err"] = max([out["fwd"]["max_abs_err"], *errs.values()])
         out["fwd"]["by_shape"][tag] = entry
-
-        # K2 through autograd (Vote.backward: grouped operands expanded, K2,
-        # gradients summed over each group) against the plain version's autograd.
-        g = torch.tensor(rng.normal(size=(b, H, W)).astype(np.float32), device="cuda")
-        grads = []
-        for fn in (scatter.vote, scatter.bilinear_accumulate):
-            leaves = [t.clone().requires_grad_(True) for t in (px, py, wt)]
-            res = fn(*(_lead(t, r0) for t in leaves), H, W)
-            torch.autograd.backward(res, g.reshape(res.shape))
-            grads.append([t.grad for t in leaves])
-        torch.cuda.synchronize()
-        # Gathers with no atomics: only FMA contraction differs, but dw
-        # sums B gathers of a broadcast weight.
-        tol = 1e-5 * b * max(1.0, float(g.abs().max()))
-        err = max(float((x - y).abs().max()) for x, y in zip(*grads))
-        if not (all(torch.isfinite(x).all() for x in grads[0]) and err <= tol):
-            raise AssertionError(f"vote_bwd {tag}: max err {err} > {tol}")
-        del grads, res
-        dpx, dpy, dw = (torch.empty_like(full[0]) for _ in range(3))
-        dev_bwd, ev_bwd = device_ms(lambda: cuda_iwe.launch_bwd(*full, g, dpx, dpy, dw))
-        del dpx, dpy, dw
-        ms = _time_ms(lambda: cuda_iwe.vote_bwd(*full, g))
-        leaves = [t.clone().requires_grad_(True) for t in full]
-        plain_out = scatter.bilinear_accumulate(*leaves, H, W)
-        plain_ms = _time_ms(
-            lambda: torch.autograd.grad(plain_out, leaves, g, retain_graph=True))
-        del plain_out, leaves
-        bd = bound("bwd", b, n, H, W, rows)
-        _log(f"vote_bwd {tag:8s} B={b} N={n} {H}x{W}: max_abs_err={err:.3e} (tol {tol:.3e}); "
-             f"device {dev_bwd:.4f} ms (events {ev_bwd:.4f}); bound {bd['bytes'] / 1e6:.3f} MB, "
-             f"{bd['bound_ms'] * 1e3:.2f} us ({bd['bound_by']}), at "
-             f"{bd['bound_ms'] / dev_bwd:.1%} of it; wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms"
-             f"{'' if 'bwd' in kernels else ' (shape not on a K2 path)'}")
-        out["bwd"]["max_abs_err"] = max(out["bwd"]["max_abs_err"], err)
-        out["bwd"]["by_shape"][tag] = {**bd, "device_ms": dev_bwd, "events_ms": ev_bwd,
-                                       "ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
-        del full, g
+        del grouped
+        entry = check_bwd(tag, b, n, H, W, kernels, rows, px, py, wt, rng, attrs, floor_ms)
+        out["bwd"]["max_abs_err"] = max(out["bwd"]["max_abs_err"], entry["max_abs_err"])
+        out["bwd"]["by_shape"][tag] = entry
+    out["bwd"]["max_abs_err"] = max(out["bwd"]["max_abs_err"], check_bwd_unaligned(rng, attrs),
+                                    check_bwd_wide(rng, attrs))
     for k, v in out.items():
         rep = v["by_shape"][REPORTED[k]]
         b, n, H, W = next(s[1:5] for s in SHAPES if s[0] == REPORTED[k])
         v.update(shape=f"{REPORTED[k]} {b}x{n}@{H}x{W}", ms=rep["ms"], device_ms=rep["device_ms"],
                  plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"])
     return out
+
+
+def _bwd_close(tag, got, ref, tol, dropped, what):
+    """K2's gradients against the plain version's: within tol, finite, and
+    exactly zero on the events every image drops. Returns the max error."""
+    import torch
+
+    err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    zeros = all(not bool(x[:, dropped].any()) for x in got)
+    if not (finite and zeros and err <= tol):
+        raise AssertionError(f"vote_bwd {tag} {what}: max err {err} (tol {tol}), finite "
+                             f"{finite}, exact zeros on dropped events {zeros}")
+    return err
+
+
+def check_bwd(tag, b, n, H, W, kernels, rows, px, py, wt, rng, attrs, floor_ms) -> dict:
+    """Phase 3's K2 part at one shape: the planner's pick through autograd
+    (scatter.vote, Vote.backward) and each variant forced through vote_bwd
+    (S only where the image stages whole), in both modes, against the plain
+    version's autograd; device times in turns (G, S, S, G; G, G where S
+    does not stage) per mode beside that mode's bound; wrapper, plain and
+    gather-yardstick times."""
+    import torch
+    import torch.nn.functional as F
+    from cmax_slam_tpu_torch.ops import cuda_iwe, scatter
+
+    r0 = min(rows)
+    g = torch.tensor(rng.normal(size=(b, H, W)).astype(np.float32), device="cuda")
+    leaves, plain_out, ref = _plain_grads(px, py, wt, g, H, W, r0)
+    torch.cuda.synchronize()
+    # Gathers with no atomics: only FMA contraction differs, but a shared
+    # operand's gradient sums up to B gathers.
+    tol = 1e-5 * b * max(1.0, float(g.abs().max()))
+    dropped = _dropped(n)
+    variants = [v for v in cuda_iwe.BWD_VARIANTS
+                if v != "S" or cuda_iwe.stages_whole(H, W, attrs[1])]
+    plans = {v: cuda_iwe.plan_vote_bwd(b, n, H, W, *attrs, variant=v)
+             for v in [None, *variants]}
+    planned = plans[None]
+    seen = []
+    vote_bwd = cuda_iwe.vote_bwd
+
+    def spy(px_, py_, w_, g_, b_=None, **kw):
+        seen.append((px_.shape[0], w_.shape[0], w_.data_ptr(), kw.get("with_dw")))
+        return vote_bwd(px_, py_, w_, g_, b_, **kw)
+
+    errs = {m: {} for m in BWD_MODES}
+    for mode, with_dw in BWD_MODES.items():
+        want = 3 if with_dw else 2
+        for v in plans:
+            if v is None:  # through autograd: weights need a gradient only in "full"
+                lv = [t.clone().requires_grad_(i < 2 or with_dw)
+                      for i, t in enumerate((px, py, wt))]
+                res = scatter.vote(*(_lead(t, r0) for t in lv), H, W)
+                cuda_iwe.vote_bwd, seen[:] = spy, []
+                try:
+                    got = torch.autograd.grad(res, lv[:want], g.reshape(res.shape))
+                finally:
+                    cuda_iwe.vote_bwd = vote_bwd
+                if seen != [(rows[0], rows[1], lv[2].data_ptr(), with_dw)]:
+                    raise AssertionError(f"vote_bwd {tag} {mode}: Vote.backward asked K2 "
+                                         f"{seen}, expected compact rows {rows} read in place "
+                                         f"and with_dw={with_dw}")
+            else:
+                d = cuda_iwe.vote_bwd(px, py, wt, g, b, with_dw=with_dw, variant=v)
+                if (d[2] is None) == with_dw:
+                    raise AssertionError(f"vote_bwd {tag} {mode} {v}: dw {d[2] is not None}")
+                got = [cuda_iwe.sum_rows(x, t.shape[0]) for x, t in zip(d[:want], (px, py, wt))]
+            torch.cuda.synchronize()
+            what = f"{mode} variant {plans[v].variant}{'' if v else ' (planned)'}"
+            errs[mode][v or "planned"] = _bwd_close(tag, got, ref[:want], tol, dropped, what)
+    del got, res, lv, d
+
+    turns = variants + variants[::-1]
+    modes = {}
+    dpx, dpy, dw = (torch.empty((b, n), device="cuda") for _ in range(3))
+    for mode, with_dw in BWD_MODES.items():
+        times = {v: [] for v in variants}
+        evs = {v: [] for v in variants}
+        for v in turns:
+            kern, ev = device_ms(lambda plan=plans[v]: cuda_iwe.launch_bwd(
+                plan, px, py, wt, g, dpx, dpy, dw if with_dw else None, b))
+            times[v].append(kern)
+            evs[v].append(ev)
+        bd = bound("bwd", b, n, H, W, rows, mode)
+        modes[mode] = {**bd, "device_ms": float(np.mean(times[planned.variant])),
+                       "ms": _time_ms(lambda w=with_dw: cuda_iwe.vote_bwd(
+                           px, py, wt, g, b, with_dw=w)),
+                       "variants": {v: {"max_abs_err": errs[mode][v], "device_ms": times[v],
+                                        "events_ms": evs[v]} for v in variants}}
+    del dpx, dpy, dw
+    plain_ms = _time_ms(lambda: torch.autograd.grad(plain_out, leaves, g.reshape(plain_out.shape),
+                                                    retain_graph=True))
+    del plain_out, leaves
+    # Yardstick: the bilinear gather alone (one of K2's three outputs, with
+    # other border rules), on a prebuilt normalized grid of every image's events.
+    full = [_lead(t, r0).expand(r0, b // r0, n).reshape(b, n) for t in (px, py)]
+    grid = torch.stack([full[0] * (2.0 / (W - 1)) - 1.0,
+                        full[1] * (2.0 / (H - 1)) - 1.0], -1).reshape(b, n, 1, 2)
+    gather_library_ms = _time_ms(lambda: F.grid_sample(
+        g[:, None], grid, mode="bilinear", align_corners=True))
+    del grid, full, g
+    paths = modes["paths"]
+    for mode, m in modes.items():
+        _log(f"vote_bwd {tag:8s} B={b} N={n} {H}x{W} rows {rows} {mode:5s}: planner "
+             f"{planned.variant} ({planned.smem_bytes} B); max_abs_err "
+             f"{errs[mode]['planned']:.3e} planned, "
+             + ", ".join(f"{v} {errs[mode][v]:.3e}" for v in variants)
+             + f" (tol {tol:.3e}); device ms in turns "
+             + ", ".join(f"{v} {a:.4f}/{c:.4f} (events {x['events_ms'][0]:.4f}/"
+                         f"{x['events_ms'][1]:.4f})"
+                         for v, x in m["variants"].items() for a, c in [x["device_ms"]])
+             + f"; bound {m['bytes'] / 1e6:.3f} MB, {m['bound_ms'] * 1e3:.2f} us "
+             f"({m['bound_by']}), planned at {m['bound_ms'] / m['device_ms']:.1%} of it; "
+             f"floor {floor_ms * 1e3:.2f} us; wrapper {m['ms']:.4f} ms, plain {plain_ms:.4f} ms, "
+             f"gather_library {gather_library_ms:.4f} ms"
+             f"{'' if 'S' in variants else ' (S does not stage this image)'}"
+             f"{'' if 'bwd' in kernels else ' (shape not on a K2 path)'}")
+    return {"plan": planned._asdict(), "bytes": paths["bytes"], "bound_ms": paths["bound_ms"],
+            "bound_by": paths["bound_by"], "device_ms": paths["device_ms"], "ms": paths["ms"],
+            "plain_ms": plain_ms, "floor_ms": floor_ms, "gather_library_ms": gather_library_ms,
+            "max_abs_err": max(e for m in errs.values() for e in m.values()), "modes": modes}
+
+
+def check_bwd_unaligned(rng, attrs) -> float:
+    """K2 on operands whose rows start off 16-byte boundaries, with a ragged
+    row end (n % 4 = 3) and an unaligned g (S copies it): each variant,
+    both modes, against the plain version. Returns the max error."""
+    import torch
+    from cmax_slam_tpu_torch.ops import cuda_iwe
+
+    b, n, H, W, rows = 3, 9_999, 40, 56, (3, 1)
+
+    def shifted(a):  # contiguous, one float past an aligned allocation
+        t = torch.empty(a.size + 1, device="cuda")[1:].view(a.shape)
+        return t.copy_(torch.tensor(a, device="cuda"))
+
+    px, py, wt = (shifted(t.cpu().numpy()) for t in _events(rng, n, H, W, rows, "cpu"))
+    g = shifted(rng.normal(size=(b, H, W)).astype(np.float32))
+    _, _, ref = _plain_grads(px, py, wt, g, H, W, 1)
+    tol = 1e-5 * b * max(1.0, float(g.abs().max()))
+    dropped = _dropped(n)
+    err = 0.0
+    for mode, with_dw in BWD_MODES.items():
+        for v in cuda_iwe.BWD_VARIANTS:
+            d = cuda_iwe.vote_bwd(px, py, wt, g, b, with_dw=with_dw, variant=v)
+            want = 3 if with_dw else 2
+            got = [cuda_iwe.sum_rows(x, t.shape[0]) for x, t in zip(d[:want], (px, py, wt))]
+            torch.cuda.synchronize()
+            err = max(err, _bwd_close("unaligned", got, ref[:want], tol, dropped,
+                                      f"{mode} variant {v}"))
+    _log(f"vote_bwd unaligned B={b} N={n} {H}x{W} rows {rows}: both variants, both modes, "
+         f"max_abs_err {err:.3e} (tol {tol:.3e})")
+    return err
+
+
+def check_bwd_wide(rng, attrs) -> float:
+    """K2 on a launch of more than 2^31 events (2049 images of 8x8 reading
+    one shared row of 2^20 events, ~17 GB of gradients), where G indexes in
+    64 bits: each variant and the planner's pick, in "paths" mode, against
+    the plain version's gradients of the first image and of the last, which
+    lies wholly past 2^31. Returns the max error."""
+    import torch
+    from cmax_slam_tpu_torch.ops import cuda_iwe
+
+    b, n, H, W = 2049, 1 << 20, 8, 8
+    assert (b - 1) * n >= 1 << 31
+    px, py, wt = _events(rng, n, H, W, (1, 1), "cuda")
+    g = torch.tensor(rng.normal(size=(b, H, W)).astype(np.float32), device="cuda")
+    refs = {i: _plain_grads(px, py, wt, g[i:i + 1], H, W, 1)[2] for i in (0, b - 1)}
+    tol = 1e-5 * max(1.0, float(g.abs().max()))
+    err, picks, dropped = 0.0, [], _dropped(n)
+    for v in (None, *cuda_iwe.BWD_VARIANTS):
+        picks.append(cuda_iwe.plan_vote_bwd(b, n, H, W, *attrs, variant=v).variant)
+        dpx, dpy, _ = cuda_iwe.vote_bwd(px, py, wt, g, b, with_dw=False, variant=v)
+        torch.cuda.synchronize()
+        for i, ref in refs.items():
+            err = max(err, _bwd_close("wide", [dpx[i:i + 1], dpy[i:i + 1]], ref[:2], tol,
+                                      dropped, f"variant {picks[-1]}{'' if v else ' (planned)'} image {i}"))
+        del dpx, dpy
+    del g
+    torch.cuda.empty_cache()
+    _log(f"vote_bwd wide B={b} N={n} {H}x{W} rows (1, 1), {b * n} events: planner {picks[0]}, "
+         f"forced {', '.join(picks[1:])}, max_abs_err {err:.3e} (tol {tol:.3e})")
+    return err
 
 
 def _rot_fn(omega):
@@ -762,6 +967,10 @@ def main() -> int:
     def by_path(key):
         return {p: counts[key] for p, counts in paths.items()}
 
+    idle = [key for key in cuda_iwe.LAUNCHES if not any(by_path(key).values())]
+    if idle:
+        raise AssertionError(f"kernels or variants no path launched: {idle}")
+
     rows = []
     for k, v in kernels.items():
         rep = v["by_shape"][REPORTED[k]]
@@ -772,7 +981,7 @@ def main() -> int:
                "library_ms": None,
                "shape": v["shape"], "by_shape": {
                    tag: {key: s[key] for key in ("device_ms", "ms", "plain_ms", "bound_ms")}
-                   | ({"plan": s["plan"]["variant"]} if k == "fwd" else {})
+                   | {"plan": s["plan"]["variant"]}
                    for tag, s in v["by_shape"].items()}}
         if k == "fwd":
             row["variants"] = {
@@ -781,6 +990,23 @@ def main() -> int:
                       "device_ms": float(np.mean(rep["variants"][var]["device_ms"])),
                       "by_shape": {tag: s["variants"][var] for tag, s in v["by_shape"].items()}}
                 for var in cuda_iwe.VARIANTS}
+        else:  # K2: device ms, bound and ms per mode ("paths" is the top level's)
+            row["floor_ms"] = v["floor_ms"]
+            row["gather_library_ms"] = rep["gather_library_ms"]
+            for tag, s in v["by_shape"].items():
+                row["by_shape"][tag] |= {
+                    "floor_ms": s["floor_ms"], "gather_library_ms": s["gather_library_ms"],
+                    "modes": {m: {key: x[key] for key in ("device_ms", "bound_ms", "ms")}
+                              for m, x in s["modes"].items()}}
+            row["variants"] = {
+                var: {"launches": launches[f"bwd_{var}"],
+                      "launches_by_path": by_path(f"bwd_{var}"),
+                      "device_ms": float(np.mean(
+                          rep["modes"]["paths"]["variants"][var]["device_ms"])),
+                      "by_shape": {tag: {m: x["variants"][var] for m, x in s["modes"].items()}
+                                   for tag, s in v["by_shape"].items()
+                                   if var in s["modes"]["paths"]["variants"]}}
+                for var in cuda_iwe.BWD_VARIANTS}
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)

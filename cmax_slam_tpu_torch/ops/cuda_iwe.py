@@ -3,10 +3,10 @@ cmax_slam_tpu/ops/pallas_iwe.py.
 
 K1 ``vote_fwd`` replaces the Pallas forward vote (pallas_iwe._fwd_impl,
 kernel _fwd_kernel); K2 ``vote_bwd`` replaces the Pallas VJP
-(pallas_iwe._vjp_bwd, kernel _bwd_kernel_lanes) and is bound by its four
-gathers per event. The source, with the design notes, is csrc/iwe.cu.
-``Vote`` wraps the pair as one ``torch.autograd.Function``; ops/scatter.vote
-routes every CUDA tensor here.
+(pallas_iwe._vjp_bwd, kernels _bwd_kernel_lanes and _bwd_kernel). The
+source, with the design notes, is csrc/iwe.cu. ``Vote`` wraps the pair as
+one ``torch.autograd.Function``; ops/scatter.vote routes every CUDA tensor
+here.
 
 K1 has two variants, chosen by shape alone in ``plan_vote_fwd``:
 - P, privatized bands: one block per (image, band of whole rows) sums the
@@ -18,9 +18,29 @@ K1 has two variants, chosen by shape alone in ``plan_vote_fwd``:
   bound by atomic throughput to L2. Everything else: narrow launches, where
   the launch dominates, and images too wide for a band plan worth having.
 The thresholds are constants below, set by tools/tune_vote_fwd.py on an
-H100 (PERF.md). K1 reads each operand as a compact (B / g, N) array, flat
-image b reading row b / g, so broadcast weights and coordinates are not
-copied per image (``compact_rows``).
+H100 (PERF.md).
+
+K2 writes dpx and dpy, and dw only when autograd asks for the weights'
+gradient (no path does), and has two variants, chosen by shape alone in
+``plan_vote_bwd``:
+- S, staged image: one block per image copies the whole upstream gradient
+  image into shared memory by bulk copies (TMA), streams the image's events
+  with 16-byte loads and gathers the taps there. Bound by bytes (g and the
+  events read once). Taken from ``S_MIN_IMAGES`` images per launch (the
+  lane-batched tracker's gradients) of images that fit one block's shared
+  memory; images too large for it are never staged in bands (they lost to
+  G on every shape timed).
+- G, global gathers: one thread per event (load, floor, early exit for a
+  dropped event, four gathers, stores) in blocks of ``G_BWD_THREADS``, a
+  compile-time constant. Bound by the SMs' throughput for scattered reads,
+  and for narrow launches by the launch and that one chain. Fewer images
+  (one packet, one back-end crop) and images too large to stage.
+The constants are set by tools/tune_vote_bwd.py on an H100 (PERF.md).
+
+Both kernels read each operand as a compact (B / g, N) array, flat image b
+reading row b / g, so broadcast weights and coordinates are not copied per
+image (``compact_rows``); K2 writes (B, N) gradients, summed over each
+shared operand's row group by ``Vote.backward`` (``sum_rows``).
 
 The library is built at first use with nvcc into ``_build/`` beside the
 package, keyed by a hash of the source and flags, and loaded with ctypes.
@@ -30,7 +50,8 @@ another.
 
 ``LAUNCHES`` counts kernel launches, one per launch and nowhere else, so a
 run can show that its votes went through the kernels: ``"fwd"`` is every K1
-launch and ``"fwd_P"``, ``"fwd_G"`` split it by variant. The build, the
+launch and ``"fwd_P"``, ``"fwd_G"`` split it by variant; ``"bwd"``,
+``"bwd_S"`` and ``"bwd_G"`` do the same for K2. The build, the
 counts and the per-device set-up are guarded by a lock: the multi-device
 modes drive votes from several host threads.
 """
@@ -48,7 +69,7 @@ from typing import NamedTuple
 
 import torch
 
-LAUNCHES = {"fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0}
+LAUNCHES = {"fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0}
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "csrc" / "iwe.cu"
@@ -62,12 +83,20 @@ P_MAX_BANDS = 4       # a band plan re-reads every event once per band: G beyond
 P_MIN_IMAGES = 24     # images per launch from which P beats G
 G_THREADS = 256       # kThreadsG in csrc/iwe.cu
 
-VARIANTS = ("G", "P")  # index = the kernel's variant code
+# K2 constants (tools/tune_vote_bwd.py on an H100, PERF.md).
+S_MIN_IMAGES = 48     # images per launch from which S beats G (G at 32)
+G_BWD_THREADS = 128   # G's block, compiled in (IWE_BWD_G_THREADS): within 4%
+                      # of the best of 32-256 at every shape timed
+S_BARRIER_BYTES = 16  # kBarrierBytes in csrc/iwe.cu
 
-_lib = None
+VARIANTS = ("G", "P")      # K1; index = the kernel's variant code
+BWD_VARIANTS = ("G", "S")  # K2; likewise
+
+_loaded: dict = {}      # nvcc_flags() -> the library built with them, once loaded
 _lock = threading.Lock()
 _attrs: dict = {}       # device index -> (SM count, opt-in shared bytes per block)
-_smem_ready: set = set()  # device indices whose band kernel may take the opt-in bytes
+_smem_ready: set = set()  # (library, device index) whose shared-memory kernels may
+                          # take the opt-in bytes
 
 
 class VotePlan(NamedTuple):
@@ -80,10 +109,19 @@ class VotePlan(NamedTuple):
     smem_bytes: int
 
 
+class BwdPlan(NamedTuple):
+    """How one K2 launch covers its events: the variant and the dynamic
+    shared memory of a block (S: the barrier and one image; 0 for G, a
+    thread per event)."""
+
+    variant: str
+    smem_bytes: int
+
+
 def band_rows(height: int, width: int, cap_bytes: int, min_bands: int = 1):
-    """(rows per band, bands): at least ``min_bands`` bands of whole rows,
-    each of at most cap_bytes of float32, as even as the row count allows
-    and none empty; None if one row is wider than cap_bytes."""
+    """(rows per band, bands): at least ``min_bands`` bands of whole rows of
+    at most cap_bytes of float32, as even as the row count allows and none
+    empty; None if not even one row fits."""
     cap = cap_bytes // (4 * width)
     if cap < 1:
         return None
@@ -117,6 +155,36 @@ def plan_vote_fwd(b: int, n: int, height: int, width: int, sm_count: int, smem_o
     return VotePlan("P", rows, bands, 4 * rows * width)
 
 
+def stages_whole(height: int, width: int, smem_optin: int) -> bool:
+    """Whether K2's S can stage a height x width image: the barrier and the
+    image fit a block's shared memory, and rows are a multiple of 16 bytes
+    (the bulk copies' unit)."""
+    return width % 4 == 0 and S_BARRIER_BYTES + 4 * height * width <= smem_optin
+
+
+def plan_vote_bwd(b: int, n: int, height: int, width: int, sm_count: int, smem_optin: int,
+                  variant: str | None = None) -> BwdPlan:
+    """The K2 variant and its launch shape for b images of height x width
+    from n events each, on a card with ``sm_count`` SMs and ``smem_optin``
+    bytes of shared memory per block. ``variant`` forces one (chip_smoke's
+    checks and tools/tune_vote_bwd.py); nothing on the main path passes it.
+
+    S from S_MIN_IMAGES images up when the image stages whole (one block per
+    image), else G (a thread per event). ``n`` and ``sm_count`` do not move
+    the choice: every path's events are sparse (under 2 per pixel)."""
+    whole = stages_whole(height, width, smem_optin)
+    if variant is None:
+        variant = "S" if whole and b >= S_MIN_IMAGES else "G"
+    if variant == "G":
+        return BwdPlan("G", 0)
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f"unknown K2 variant {variant!r}")
+    if not whole:
+        raise ValueError(f"a {height}x{width} image cannot be staged whole in {smem_optin} B of "
+                         "shared memory by 16-byte copies")
+    return BwdPlan("S", S_BARRIER_BYTES + 4 * height * width)
+
+
 def compact_rows(t: torch.Tensor, lead: tuple, n: int) -> torch.Tensor:
     """An operand broadcastable to (*lead, n) as the contiguous float32
     (R, n) array K1 reads, flat image b reading row b // (B // R). A
@@ -133,14 +201,6 @@ def compact_rows(t: torch.Tensor, lead: tuple, n: int) -> torch.Tensor:
     return t.expand(*lead, n).reshape(-1, n).float().contiguous()
 
 
-def expand_rows(t: torch.Tensor, b: int) -> torch.Tensor:
-    """A compact (R, n) operand as the full (b, n) array (a copy if R < b)."""
-    r = t.shape[0]
-    if r == b:
-        return t
-    return t[:, None].expand(r, b // r, t.shape[1]).reshape(b, -1).contiguous()
-
-
 def sum_rows(d: torch.Tensor, r: int) -> torch.Tensor:
     """A (b, n) gradient summed over each row group: (r, n)."""
     return d if d.shape[0] == r else d.reshape(r, -1, d.shape[1]).sum(1)
@@ -154,23 +214,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
+def nvcc_flags() -> tuple:
+    """NVCC_FLAGS and the constants compiled in: K2's G block size."""
+    return (*NVCC_FLAGS, f"-DIWE_BWD_G_THREADS={G_BWD_THREADS}")
+
+
 def library_path() -> Path:
     """Where the build for the current source and flags lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(nvcc_flags()).encode())
     return BUILD_DIR / f"libiwe_{digest.hexdigest()[:16]}.so"
 
 
 def build():
-    """Compile csrc/iwe.cu (once per source hash) and load it; returns the
-    ctypes library. Raises with nvcc's output if the build fails."""
+    """Compile csrc/iwe.cu (once per source hash and flags) and load it;
+    returns the ctypes library. Raises with nvcc's output if the build
+    fails. After a change of G_BWD_THREADS (tools/tune_vote_bwd.py) the
+    next call loads the library built with the new value."""
     with _lock:
         return _build_locked()
 
 
 def _build_locked():
-    global _lib
-    if _lib is not None:
-        return _lib
+    flags = nvcc_flags()
+    if flags in _loaded:
+        return _loaded[flags]
     import ctypes
 
     so = library_path()
@@ -178,7 +245,7 @@ def _build_locked():
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
@@ -189,16 +256,19 @@ def _build_locked():
     ip = ctypes.POINTER(ctypes.c_int)
     lib.iwe_device_attrs.argtypes = [i32, ip, ip]
     lib.iwe_device_attrs.restype = i32
-    lib.iwe_vote_fwd_allow_smem.argtypes = [i32]
-    lib.iwe_vote_fwd_allow_smem.restype = i32
+    lib.iwe_allow_smem.argtypes = [i32]
+    lib.iwe_allow_smem.restype = i32
     lib.iwe_vote_fwd.argtypes = [i32, p, p, p, i64, i64, i64, p, i64, i64, i32, i32,
                                  i32, i32, i32, p]
     lib.iwe_vote_fwd.restype = i32
-    lib.iwe_vote_bwd.argtypes = [p, p, p, p, p, p, p, i64, i64, i32, i32, p]
+    lib.iwe_vote_bwd.argtypes = [i32, p, p, p, i64, i64, i64, p, p, p, p, i64, i64, i32, i32,
+                                 i32, p]
     lib.iwe_vote_bwd.restype = i32
+    lib.iwe_noop.argtypes = [p]
+    lib.iwe_noop.restype = i32
     lib.iwe_error_string.argtypes = [i32]
     lib.iwe_error_string.restype = ctypes.c_char_p
-    _lib = lib
+    _loaded[flags] = lib
     return lib
 
 
@@ -225,14 +295,15 @@ def device_attrs(device: torch.device) -> tuple:
 
 
 def _allow_smem(lib, device: torch.device) -> None:
-    """Once per device: let the band kernel take the opt-in shared memory
-    (cudaFuncSetAttribute, needed above 48 KB). Runs on the current device."""
-    index = torch.cuda.current_device()
+    """Once per library and device: let the shared-memory kernels take the
+    opt-in shared memory (cudaFuncSetAttribute, needed above 48 KB). Runs on
+    the current device."""
+    key = (id(lib), torch.cuda.current_device())  # loaded libraries are kept: ids stay theirs
     smem = device_attrs(device)[1]
     with _lock:
-        if index not in _smem_ready:
-            _check("cudaFuncSetAttribute", lib.iwe_vote_fwd_allow_smem(smem), lib)
-            _smem_ready.add(index)
+        if key not in _smem_ready:
+            _check("cudaFuncSetAttribute", lib.iwe_allow_smem(smem), lib)
+            _smem_ready.add(key)
 
 
 def _check_events(px, py, w, b):
@@ -289,40 +360,65 @@ def vote_fwd(px: torch.Tensor, py: torch.Tensor, w: torch.Tensor, height: int, w
     return out
 
 
-def launch_bwd(px, py, w, g, dpx, dpy, dw) -> None:
-    """One raw K2 launch into preallocated (B, N) outputs; not counted."""
-    b, n = px.shape
+def launch_bwd(plan: BwdPlan, px, py, w, g, dpx, dpy, dw, b: int) -> None:
+    """One raw K2 launch of ``plan`` into preallocated (b, N) outputs (dw
+    None: not written), on the current stream; not counted and allocating
+    nothing (chip_smoke times the kernels with it)."""
+    n, (height, width) = px.shape[1], g.shape[1:]
+    if plan.variant == "S" and (width % 4 or g.data_ptr() % 16):
+        raise ValueError("S stages rows by 16-byte copies: g must be 16-byte aligned, W % 4 == 0")
     lib = build()
     with torch.cuda.device(px.device):
+        if plan.variant == "S":
+            _allow_smem(lib, px.device)
         stream = torch.cuda.current_stream(px.device).cuda_stream
-        err = lib.iwe_vote_bwd(px.data_ptr(), py.data_ptr(), w.data_ptr(), g.data_ptr(),
-                               dpx.data_ptr(), dpy.data_ptr(), dw.data_ptr(),
-                               b, n, g.shape[1], g.shape[2], stream)
-    _check("iwe_vote_bwd launch", err, lib)
+        err = lib.iwe_vote_bwd(
+            BWD_VARIANTS.index(plan.variant), px.data_ptr(), py.data_ptr(), w.data_ptr(),
+            b // px.shape[0], b // py.shape[0], b // w.shape[0], g.data_ptr(), dpx.data_ptr(),
+            dpy.data_ptr(), None if dw is None else dw.data_ptr(), b, n, height, width,
+            plan.smem_bytes, stream)
+    _check(f"iwe_vote_bwd ({plan.variant}) launch", err, lib)
 
 
-def vote_bwd(px: torch.Tensor, py: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
-    """K2: upstream (B, H, W) gradient -> (dpx, dpy, dw), each (B, N)."""
-    _check_events(px, py, w, None)
-    b, n = px.shape
-    if py.shape != px.shape or w.shape != px.shape:
-        raise ValueError("K2 takes px, py and w of one (B, N) shape")
+def vote_bwd(px: torch.Tensor, py: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+             b: int | None = None, *, with_dw: bool = True, variant: str | None = None):
+    """K2: compact (R, N) events (as ``vote_fwd`` reads them) and the
+    upstream (b, H, W) gradient -> (dpx, dpy, dw), each (b, N) per image;
+    dw is None unless ``with_dw``. Any b x N: G indexes in 64 bits from 2^31
+    events. The planner picks the variant; ``variant`` forces one
+    (internal)."""
+    b = _check_events(px, py, w, b)
+    n = px.shape[1]
     if (g.device != px.device or g.dtype != torch.float32 or not g.is_contiguous()
             or g.dim() != 3 or g.shape[0] != b):
         raise ValueError("g must be a contiguous float32 (B, H, W) tensor on the events' device")
-    dpx, dpy, dw = (torch.empty_like(px) for _ in range(3))
+    dpx, dpy = (torch.empty((b, n), dtype=torch.float32, device=px.device) for _ in range(2))
+    dw = torch.empty_like(dpx) if with_dw else None
     if b * n == 0:
         return dpx, dpy, dw
-    launch_bwd(px, py, w, g, dpx, dpy, dw)
+    plan = plan_vote_bwd(b, n, g.shape[1], g.shape[2], *device_attrs(px.device), variant=variant)
+    if plan.variant == "S" and g.data_ptr() % 16:
+        g = g.clone()  # a fresh allocation is aligned for the bulk copies
+    launch_bwd(plan, px, py, w, g, dpx, dpy, dw, b)
     with _lock:
         LAUNCHES["bwd"] += 1
+        LAUNCHES["bwd_" + plan.variant] += 1
     return dpx, dpy, dw
 
 
+def launch_noop(device: torch.device) -> None:
+    """One launch of the empty kernel on ``device``'s current stream: the
+    least device time any launch takes (chip_smoke's floor_ms). Not counted."""
+    lib = build()
+    with torch.cuda.device(device):
+        err = lib.iwe_noop(torch.cuda.current_stream(device).cuda_stream)
+    _check("iwe_noop launch", err, lib)
+
+
 class Vote(torch.autograd.Function):
-    """K1 forward on compact operands for b images, K2 backward (the
-    floor-parametrized gradient) on the full (b, N) operands, each gradient
-    summed back over its operand's row group."""
+    """K1 forward and K2 backward (the floor-parametrized gradient), both on
+    compact operands for b images. K2 writes dw only when the weights need a
+    gradient; each gradient is summed back over its operand's row group."""
 
     @staticmethod
     def forward(ctx, px, py, w, height: int, width: int, b: int):
@@ -333,15 +429,17 @@ class Vote(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ops = ctx.saved_tensors
-        grads = vote_bwd(*(expand_rows(t, ctx.b) for t in ops), g.contiguous())
-        return (*(sum_rows(d, t.shape[0]) for d, t in zip(grads, ops)), None, None, None)
+        need = ctx.needs_input_grad[:3]
+        grads = vote_bwd(*ops, g.contiguous(), ctx.b, with_dw=need[2])
+        return (*(sum_rows(d, t.shape[0]) if want else None
+                  for d, t, want in zip(grads, ops, need)), None, None, None)
 
 
 def bilinear_accumulate_cuda(px: torch.Tensor, py: torch.Tensor, weights: torch.Tensor,
                              height: int, width: int) -> torch.Tensor:
     """(..., N) events on the card -> (..., height, width), through the
-    kernels. Operands broadcast over trailing lead dimensions reach K1 as
-    compact row groups, with no copy (``compact_rows``)."""
+    kernels. Operands broadcast over trailing lead dimensions reach K1 and
+    K2 as compact row groups, with no copy (``compact_rows``)."""
     shape = torch.broadcast_shapes(px.shape, py.shape, weights.shape)
     lead, n = tuple(shape[:-1]), shape[-1]
     if n * math.prod(lead) == 0:

@@ -37,7 +37,7 @@ _PROBE = textwrap.dedent("""
     from cmax_slam_tpu_torch.ops import cuda_iwe
     build_dir = cuda_iwe.BUILD_DIR
     built = sorted(p.name for p in build_dir.glob("*")) if build_dir.exists() else []
-    print(json.dumps({"preloaded": preloaded, "names": names, "lib": cuda_iwe._lib is not None,
+    print(json.dumps({"preloaded": preloaded, "names": names, "lib": bool(cuda_iwe._loaded),
                       "launches": cuda_iwe.LAUNCHES, "built": built}))
 """)
 
@@ -62,7 +62,7 @@ def test_importing_every_module_needs_no_jax_and_builds_nothing(tmp_path):
     assert expected <= set(res["names"])
     assert not res["preloaded"]
     assert not res["lib"] and res["launches"] == {
-        "fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0}
+        "fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0}
     assert res["built"] == before
 
 

@@ -164,7 +164,7 @@ def test_kernel_wrappers_refuse_what_they_cannot_launch():
     meta = torch.zeros(4, device="meta")
     with pytest.raises(RuntimeError, match="meta"):
         scatter.vote(meta, meta, meta, 8, 8)
-    assert cuda_iwe._lib is None and cuda_iwe.LAUNCHES == launches
+    assert not cuda_iwe._loaded and cuda_iwe.LAUNCHES == launches
 
 
 def test_two_image_split_matches_jax(rng):

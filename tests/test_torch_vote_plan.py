@@ -1,4 +1,4 @@
-"""The K1 planner and the operand plumbing around the vote kernels
+"""The K1 and K2 planners and the operand plumbing around the vote kernels
 (cmax_slam_tpu_torch/ops/cuda_iwe.py), on the CPU: nothing here needs the
 card, and nothing detects one.
 
@@ -14,11 +14,24 @@ card, and nothing detects one.
 (c) ``compact_rows``: broadcasts over trailing lead dimensions reach K1 as
     row groups with no copy; other broadcasts are materialized.
 (d) ``Vote``'s backward on grouped operands (K1/K2 replaced by their plain
-    versions, since the CPU has no kernels): gradients summed over each
-    group equal autograd's through ``expand``.
+    versions, since the CPU has no kernels): K2 reads the same compact
+    operands as K1, and its per-image gradients summed over each group
+    equal autograd's through ``expand``; it is asked for dw only when the
+    weights need a gradient, which no objective of the paths does.
 (e) An empty batch gives empty images without reaching a kernel.
+(f) ``plan_vote_bwd`` at the same shapes: S stages whole images only,
+    within the shared memory, and is refused an image that does not fit;
+    the variant is the one the thresholds pick.
+(g) A plain-torch emulation of K2's variant S built from the planner's
+    output (one block per image stages it whole, walks its events four at
+    a time, past a ragged row end too, and gathers each event's taps from
+    the staged copy) writes every event once and equals the plain autograd
+    gradients and the JAX package's Pallas VJP (interpret mode), to 1e-5,
+    on events on the image's border rows and columns, on integers, NaN,
+    infinite and with weight 0.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +39,12 @@ import torch
 
 import chip_smoke
 from cmax_slam_tpu.ops import scatter as jscatter
-from cmax_slam_tpu_torch.ops import cuda_iwe, scatter
+from cmax_slam_tpu.ops.pallas_iwe import bilinear_accumulate_pallas
+from cmax_slam_tpu_torch import calib
+from cmax_slam_tpu_torch.ops import cuda_iwe, scatter, warp_local, warp_pano
+from test_crop_solver import _plan_for_test, _smooth_map
+from test_pano import _make_window
+from test_torch_objectives import _packets, _to_torch
 
 torch.set_num_threads(1)
 
@@ -200,21 +218,29 @@ def test_compact_rows_materializes_a_leading_broadcast():
     assert c.shape == (P * M, N)
 
 
+def _expand(t, b):
+    """A compact (R, n) operand as the full (b, n) array, image i reading row
+    i // (b // R)."""
+    return t[:, None].expand(t.shape[0], b // t.shape[0], t.shape[1]).reshape(b, -1)
+
+
 def _plain_kernels(monkeypatch, seen):
-    """Replace K1 and K2 by their plain versions, recording what they get."""
+    """Replace K1 and K2 by their plain versions, recording what they get:
+    (kernel, b, [(shape, data_ptr) of px, py, w], K2's with_dw)."""
 
     def fwd(px, py, w, height, width, b=None, **kw):
-        seen.append(("fwd", b, [(t.shape, t.data_ptr()) for t in (px, py, w)]))
-        full = [cuda_iwe.expand_rows(t, b) for t in (px, py, w)]
+        seen.append(("fwd", b, [(t.shape, t.data_ptr()) for t in (px, py, w)], None))
+        full = [_expand(t, b) for t in (px, py, w)]
         return scatter.bilinear_accumulate(*full, height, width)
 
-    def bwd(px, py, w, g):
+    def bwd(px, py, w, g, b=None, *, with_dw=True, variant=None):
         assert all(t.is_contiguous() for t in (px, py, w, g))  # as K2 requires
-        seen.append(("bwd", None, [tuple(t.shape) for t in (px, py, w)]))
-        leaves = [t.detach().requires_grad_(True) for t in (px, py, w)]
+        seen.append(("bwd", b, [(t.shape, t.data_ptr()) for t in (px, py, w)], with_dw))
+        leaves = [_expand(t, b).detach().requires_grad_(True) for t in (px, py, w)]
         with torch.enable_grad():  # backward runs with grad mode off
             img = scatter.bilinear_accumulate(*leaves, g.shape[1], g.shape[2])
-        return torch.autograd.grad(img, leaves, g)
+        dpx, dpy, dw = torch.autograd.grad(img, leaves, g)  # per image, (b, n)
+        return dpx, dpy, dw if with_dw else None
 
     monkeypatch.setattr(cuda_iwe, "vote_fwd", fwd)
     monkeypatch.setattr(cuda_iwe, "vote_bwd", bwd)
@@ -248,9 +274,10 @@ def test_grouped_backward_equals_autograd_through_expand(rng, monkeypatch, layou
     for a, r in zip(got, ref):
         assert a.shape == r.shape
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
-    (_, b, fwd_ops), (_, _, bwd_shapes) = seen
+    (_, b, fwd_ops, _), (_, b_bwd, bwd_ops, with_dw) = seen
     B = int(np.prod(lead))
-    assert b == B and bwd_shapes == [(B, N)] * 3  # K2 gets full operands
+    assert b == b_bwd == B and with_dw
+    assert bwd_ops == fwd_ops  # K2 reads the compact operands K1 read, in place
     w_rows, w_ptr = fwd_ops[2]
     if layout == "lanes":
         assert w_rows == (P, N)
@@ -269,3 +296,218 @@ def test_empty_batch_gives_empty_images(shape):
     img = cuda_iwe.bilinear_accumulate_cuda(px, px, torch.ones(shape[-1:]), H, W)
     assert img.shape == (*shape[:-1], H, W) and not img.any()
     assert img.shape == scatter.bilinear_accumulate(px, px, torch.ones(shape[-1:]), H, W).shape
+
+
+@pytest.mark.parametrize("layout", ["lanes", "split"])
+def test_vote_backward_asks_no_dw_when_the_weights_need_no_gradient(rng, monkeypatch, layout):
+    H, W, N, P, M = 24, 32, 400, 3, 4
+    xy_shape, w_shape = {"lanes": ((P, M, N), (P, 1, N)), "split": ((N,), (2, N))}[layout]
+    px = rng.uniform(-2, W + 2, xy_shape).astype(np.float32)
+    py = rng.uniform(-2, H + 2, xy_shape).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, w_shape).astype(np.float32)
+    lead = torch.broadcast_shapes(px.shape, w.shape)[:-1]
+    key = torch.tensor(rng.normal(size=(*lead, H, W)).astype(np.float32))
+
+    def grads(fn):
+        leaves = [torch.tensor(a, requires_grad=i < 2) for i, a in enumerate((px, py, w))]
+        torch.sum(key * fn(*leaves, H, W)).backward()
+        return [t.grad for t in leaves]
+
+    seen = []
+    _plain_kernels(monkeypatch, seen)
+    got = grads(cuda_iwe.bilinear_accumulate_cuda)
+    ref = grads(scatter.bilinear_accumulate)
+    assert got[2] is None and ref[2] is None
+    for a, r in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+    assert [(k, with_dw) for k, *_, with_dw in seen] == [("fwd", None), ("bwd", False)]
+
+
+def _route_votes_through_vote(monkeypatch, seen):
+    """Send the objectives' votes on the CPU through the CUDA route
+    (bilinear_accumulate_cuda, Vote) with K1/K2 replaced by their plain
+    versions, as they reach the kernels on the card."""
+    _plain_kernels(monkeypatch, seen)
+    monkeypatch.setattr(warp_local, "vote", cuda_iwe.bilinear_accumulate_cuda)
+    monkeypatch.setattr(warp_pano, "vote", cuda_iwe.bilinear_accumulate_cuda)
+
+
+@pytest.mark.parametrize("objective", ["local", "local_lanes", "crop"])
+def test_objectives_value_and_grad_ask_k2_for_no_dw(rng, monkeypatch, objective):
+    """The front-end local objective (one packet, and lanes x rungs) and the
+    back-end crop objective differentiate the warp, never the weights:
+    their value_and_grad asks K2 for no dw, with the gradient unchanged."""
+    if objective.startswith("local"):
+        _, tp, cam, omega = _packets(rng)
+        tcam = warp_local.CameraParams(*cam)
+        x = torch.tensor(np.float32(omega))
+        if objective == "local_lanes":  # (P, N) lane packets, (P, M, 3) candidates
+            tp = warp_local.EventPacket(*(torch.stack([t, t]) for t in tp))
+            x = torch.stack([torch.stack([x, 0.5 * x]), torch.stack([0.9 * x, x])])
+
+        def make():
+            return warp_local.make_local_objective(tp, tcam, 1.0, 0)[1]
+    else:
+        order, sigma, measure = 2, 1.0, 0
+        win_j, pano_j, _, _ = _make_window(rng, n_events=4096)
+        win_j = win_j._replace(ig_prime=jnp.asarray(_smooth_map(rng, pano_j.height,
+                                                                pano_j.width)))
+        Hc, Wc, ints = _plan_for_test(win_j, pano_j, order, sigma, measure)
+        pano = calib.EquirectCamera(width=pano_j.width, height=pano_j.height)
+        ct = warp_pano.crop_window_constants(_to_torch(win_j), pano, order, sigma, measure,
+                                             (Hc, Wc), ints)
+        x = torch.tensor((rng.normal(size=3 * win_j.knots.shape[0]) * 0.01).astype(np.float32))
+
+        def make():
+            return warp_pano.make_crop_objective(ct[0], pano, order, sigma, measure, (Hc, Wc),
+                                                 *ct[1:])[1]
+
+    v_ref, g_ref = make()(x)
+    seen = []
+    _route_votes_through_vote(monkeypatch, seen)
+    v, g = make()(x)
+    torch.testing.assert_close(v, v_ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(g, g_ref, rtol=1e-4, atol=1e-6)
+    bwd = [with_dw for k, *_, with_dw in seen if k == "bwd"]
+    assert bwd == [False]  # one K2 launch, no dw
+
+
+# The K2 planner's pick at each shape, with the threshold measured on an
+# H100 (PERF.md): lanes and lanegrad are wide launches of front-end images
+# (S); the rest have fewer than S_MIN_IMAGES images (G), and 2048x4096 does
+# not stage whole (G).
+EXPECTED_BWD = {"sweep": "G", "packet": "G", "crop": "G", "split": "G", "headroom": "G",
+                "lanes": "S", "lanegrad": "S", "pano2048": "G"}
+
+
+@pytest.mark.parametrize("tag,b,n,H,W", SHAPES, ids=[s[0] for s in SHAPES])
+def test_bwd_planner_stages_whole_images_and_picks_the_variant(tag, b, n, H, W):
+    plan = cuda_iwe.plan_vote_bwd(b, n, H, W, SMS, OPTIN)
+    assert plan.variant == EXPECTED_BWD[tag]
+    whole = cuda_iwe.S_BARRIER_BYTES + 4 * H * W
+    assert cuda_iwe.stages_whole(H, W, OPTIN) == (whole <= OPTIN and W % 4 == 0)
+    if cuda_iwe.stages_whole(H, W, OPTIN):
+        forced = cuda_iwe.plan_vote_bwd(b, n, H, W, SMS, OPTIN, variant="S")
+        assert forced == ("S", whole)
+    else:  # the 384x384 crop and the panoramas: never staged in bands
+        with pytest.raises(ValueError, match="cannot be staged whole"):
+            cuda_iwe.plan_vote_bwd(b, n, H, W, SMS, OPTIN, variant="S")
+    if plan.variant == "S":  # whole images, one block each
+        assert forced == plan and b >= cuda_iwe.S_MIN_IMAGES
+    else:  # G: a thread per event, its grid computed by the launch
+        assert plan == ("G", 0)
+
+
+def test_bwd_planner_picks_by_shape_alone_and_refuses_what_it_cannot_stage():
+    def plan(b, n=10_000, H=180, W=240):
+        return cuda_iwe.plan_vote_bwd(b, n, H, W, SMS, OPTIN)
+
+    # A 180x240 image stages whole (172 816 B with the barrier): S from
+    # S_MIN_IMAGES images, one block per image, however dense the events.
+    assert plan(224) == plan(48) == ("S", 172_816)
+    assert plan(47) == plan(1) == plan(1, 1 << 20) == ("G", 0)
+    assert plan(48, 1 << 20) == plan(48)
+    # Images that do not stage whole, rows of W % 4 != 0, rows too wide for
+    # the shared memory: G, and forcing S raises.
+    assert plan(224, 1 << 18, 384, 384).variant == "G"
+    assert plan(224, 10_000, 180, 242).variant == "G"
+    assert plan(4096, 10, 4, 100_000).variant == "G"
+    assert plan(224, 10_000, 240, 240).variant == "S"  # 230 416 B: the largest square
+    assert plan(224, 10_000, 244, 240).variant == "G"
+    for H, W in ((180, 242), (4, 100_000), (384, 384)):
+        with pytest.raises(ValueError, match="cannot be staged whole"):
+            cuda_iwe.plan_vote_bwd(1, 10, H, W, SMS, OPTIN, variant="S")
+    with pytest.raises(ValueError, match="unknown"):
+        cuda_iwe.plan_vote_bwd(1, 10, 8, 8, SMS, OPTIN, variant="P")
+
+
+def emulate_staged(px, py, w, g, plan, with_dw=True):
+    """K2's variant S in plain torch, from the planner's output: each image's
+    block stages the whole image in its shared memory, walks the events
+    four at a time (weight 0 past the row's end, never stored), gathers each
+    event's four taps from the staged copy (a dropped event reads the first
+    pixels and ignores them) and writes its gradients. Every event must be
+    written once."""
+    b, n = px.shape
+    H, W = g.shape[1:]
+    assert plan.variant == "S" and plan.smem_bytes == cuda_iwe.S_BARRIER_BYTES + 4 * H * W
+    m = -(-n // 4) * 4  # the last quad, ragged where n % 4 != 0
+    pad = [torch.cat([t, torch.zeros(b, m - n)], 1) for t in (px, py, w)]
+    out = [torch.full((b, n), float("nan")) for _ in range(3)]
+    for i in range(b):
+        staged = g[i].reshape(-1)  # the image, as the bulk copies land it
+        for e in range(0, m, 4):
+            x, y, wt = (t[i, e:e + 4] for t in pad)
+            fx, fy = torch.floor(x), torch.floor(y)
+            valid = (fx >= 1) & (fx < W - 2) & (fy >= 1) & (fy < H - 2) & (wt != 0)
+            at = torch.where(valid, fy * W + fx, 0.0).long()
+            sx, sy = valid.long(), valid.long() * W
+            t00, t01, t10, t11 = (staged[at + o] for o in (0, sx, sy, sy + sx))
+            dx, dy = x - fx, y - fy
+            grads = (wt * ((1 - dy) * (t01 - t00) + dy * (t11 - t10)),
+                     wt * ((1 - dx) * (t10 - t00) + dx * (t11 - t01)),
+                     (1 - dy) * ((1 - dx) * t00 + dx * t01) + dy * ((1 - dx) * t10 + dx * t11))
+            cnt = min(4, n - e)
+            for o, v in zip(out, grads):
+                assert bool(o[i, e:e + cnt].isnan().all())  # no event written twice
+                o[i, e:e + cnt] = torch.where(valid, v, 0.0)[:cnt]
+    assert not any(bool(o.isnan().any()) for o in out)  # every event written
+    return out if with_dw else out[:2] + [None]
+
+
+def _border_events(rng, b, n, H, W):
+    """Events with a third on the rows and columns at the in-bounds border
+    (floor 0, 1, H-3 or W-3, H-2 or W-2; fractional and integer), a fifth
+    of the rest on integer coordinates, NaN and infinite coordinates, and
+    weight-0 padding."""
+    px = rng.uniform(-3, W + 3, (b, n)).astype(np.float32)
+    py = rng.uniform(-3, H + 3, (b, n)).astype(np.float32)
+    k = n // 3
+    for a, size in ((px, W), (py, H)):
+        edge = rng.choice([0, 1, size - 3, size - 2], (b, k))
+        frac = np.where(rng.uniform(size=(b, k)) < 0.25, 0.0, rng.uniform(size=(b, k)))
+        a[:, :k] = (edge + frac).astype(np.float32)
+    m = k + (n - k) // 5
+    px[:, k:m] = np.round(px[:, k:m])
+    py[:, k:m] = np.round(py[:, k:m])
+    px[:, m:m + 3] = [np.nan, np.inf, -np.inf]
+    py[:, m + 3:m + 5] = [np.nan, -np.inf]
+    w = rng.uniform(0.5, 1.5, (b, n)).astype(np.float32)
+    w[:, -n // 10:] = 0.0
+    return px, py, w
+
+
+STAGED_CASES = {
+    # (b, n, H, W): small images against JAX too, with n % 4 = 0 and a
+    # ragged last quad (n % 4 = 1); a front-end image against autograd.
+    "small": (2, 3_000, 40, 56),
+    "ragged": (3, 3_001, 41, 56),
+    "front_end": (1, 4_003, 180, 240),
+}
+
+
+@pytest.mark.parametrize("case", list(STAGED_CASES))
+def test_staged_emulation_equals_plain_autograd_and_the_pallas_vjp(rng, case):
+    b, n, H, W = STAGED_CASES[case]
+    plan = cuda_iwe.plan_vote_bwd(b, n, H, W, SMS, OPTIN, variant="S")
+    px, py, w = _border_events(rng, b, n, H, W)
+    g = rng.normal(size=(b, H, W)).astype(np.float32)
+    tpx, tpy, tw, tg = (torch.tensor(a) for a in (px, py, w, g))
+    leaves = [t.clone().requires_grad_(True) for t in (tpx, tpy, tw)]
+    ref = torch.autograd.grad(scatter.bilinear_accumulate(*leaves, H, W), leaves, tg)
+    got = emulate_staged(tpx, tpy, tw, tg, plan)
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=0, atol=1e-5)
+    assert emulate_staged(tpx, tpy, tw, tg, plan, with_dw=False)[2] is None
+    dropped = ~np.isfinite(px) | ~np.isfinite(py) | (w == 0)
+    assert dropped.sum() >= 5 * b and all(not a.numpy()[dropped].any() for a in got)
+    if H * W <= 4096:
+        for i in range(b):
+            _, pull = jax.vjp(lambda a, c, d: bilinear_accumulate_pallas(a, c, d, H, W, "highest"),
+                              *(jnp.asarray(t[i]) for t in (px, py, w)))
+            for a, r in zip(got, pull(jnp.asarray(g[i]))):
+                np.testing.assert_allclose(a[i].numpy(), np.asarray(r), rtol=0, atol=1e-5)
+    # Events on the last in-bounds row and column took their taps from the
+    # image's far edge.
+    last = ((np.floor(py) == H - 3) | (np.floor(px) == W - 3)) & ~dropped
+    assert last.sum() > 0 and np.abs(got[0].numpy()[last]).sum() > 0

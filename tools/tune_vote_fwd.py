@@ -74,8 +74,9 @@ def main() -> int:
     shapes = [s[:5] + (s[6],) for s in chip_smoke.SHAPES] + list(EXTRA)
     for tag, b, n, H, W, rows in shapes:
         px, py, wt = chip_smoke._events(rng, n, H, W, rows, "cuda")
-        ref = scatter.bilinear_accumulate(*(cuda_iwe.expand_rows(t, b) for t in (px, py, wt)),
-                                          H, W)
+        r0 = min(rows)
+        ref = scatter.bilinear_accumulate(*(chip_smoke._lead(t, r0) for t in (px, py, wt)),
+                                          H, W).reshape(b, H, W)
         tol = 1e-5 * max(1.0, float(ref.abs().max()))
         img = torch.empty((b, H, W), device="cuda")
         bd = chip_smoke.bound("fwd", b, n, H, W, rows)
