@@ -27,8 +27,27 @@ Phases, in order; any failure exits non-zero:
    bilinear gather of F.grid_sample as a yardstick;
 4. system: CMaxSLAM on the stock ijrr preset, driven through push_events on a
    2.0 s synthetic 240x180 stream at 390k ev/s (make_stream), must keep its
-   state on the card, run at least 15 BA windows through both kernels and
-   track the ground truth to < 0.3 deg RMS;
+   state on the card, gather its packets from the device event ring (the
+   stock front-end schedule), each torch.equal to the packet gathered from
+   the host store, run at least 15 BA windows through both kernels and
+   track the ground truth to < 0.3 deg RMS; then the same stream on the
+   per-packet schedule from the host store (frontend.device_store=False,
+   batch_sweeps=0), with the same checks, the same packet grid and a median
+   omega difference under 0.01 rad/s (the schedules give bit-equal solver
+   inputs: what differs is K1's atomic sum order); the largest difference
+   must stay under 0.1 rad/s, or the packet that carries it, solved again
+   alone from both schedules' warm starts, must reach both logged values;
+   both walls are printed. Then a ring of 2^15 events on 0.6 s of the
+   stream, cut, saved and resumed: appends and packets wrap, the resync
+   wraps, lapped packets are gathered from the host store, and every ring
+   packet equals its host packet. Then the cubic system: the stock preset
+   with backend.trajectory.spline_degree=3 on the same stream, with phase
+   4's checks; and the resume pair: 1.0 s of the stream run whole, and cut
+   after two windows, saved, loaded into a fresh CMaxSLAM (its ring rebuilt
+   from the restored store) and fed the rest: the same window count and
+   refined-pose times, the resumed trajectory within 0.05 deg RMS of the
+   uninterrupted one. RMS readings are printed also with the quaternions
+   left unnormalized, the JAX package's yardstick;
 5. cli: the same stream written to an IJRR 't x y p' text file and run
    through ``cmax_slam_tpu_torch.cli.main`` on the stock ijrr preset with a
    refine pass, IWE-pair and map dumps: all outputs written, every event
@@ -49,9 +68,10 @@ Phases, in order; any failure exits non-zero:
    (overlap 0.4 s) on the stock preset, stitched RMS < 0.5 deg.
 
 Before the last line it prints one JSON object with every kernel's route,
-source, launches on each path (the system run of phase 4, the CLI run of
-phase 5, the batched run of phase 6 and the window and replay runs of
-phase 7, each counted from 0), error, times and bound, and the same per
+source, launches on each path (the two system runs of phase 4, the small
+ring, the cubic system, the resume pair, the CLI run of phase 5, the batched run of phase
+6 and the window and replay runs of phase 7, each counted from 0), error,
+times and bound, and the same per
 variant; the last line is ``{"ok": true, "device": {...}}``. Imports
 neither jax nor the JAX package.
 """
@@ -561,47 +581,119 @@ def _reset_launches():
         cuda_iwe.LAUNCHES[k] = 0
 
 
-def run_system(device: str = "cuda"):
-    """Phase 4: the stock preset through the public entry points. Returns
-    (launches during the run, {check: passed}, the (T, 4) ang_vel_log)."""
-    import torch
+def _rms_unnormalized(q_ref, q_est) -> float:
+    """rotation_rms_deg's reading with the quaternions taken as they are, as
+    the JAX package's evaluate.quat_to_rotmats takes them; the port's
+    normalizes them first (float32 knots are unit only to ~1e-7)."""
     from cmax_slam_tpu_torch import spline
-    from cmax_slam_tpu_torch.config import ijrr_config
-    from cmax_slam_tpu_torch.ops import cuda_iwe
-    from cmax_slam_tpu_torch.system import CMaxSLAM
+    from cmax_slam_tpu_torch.utils.evaluate import align_global, angle_deg
+
+    R_ref, R_est = (spline._np_quat_rotmat_batch(np.asarray(q, np.float64))
+                    for q in (q_ref, q_est))
+    A = align_global(R_ref, R_est)
+    errs = np.array([angle_deg(a, A @ b) for a, b in zip(R_ref, R_est)])
+    return float(np.sqrt(np.mean(errs ** 2)))
+
+
+def _rms_vs_truth(traj, omega, samples: int = 80):
+    """(RMS against the ground truth in deg, the same unnormalized)."""
+    from cmax_slam_tpu_torch import spline
     from cmax_slam_tpu_torch.utils.evaluate import rotation_rms_deg
 
-    chunk, duration = 39_000, 2.0
+    grid = np.linspace(traj.t_beg + 1e-6, traj.max_time() - 1e-6, samples)
+    q_gt = np.stack([spline._np_quat_exp(omega * t) for t in grid])
+    q = traj.evaluate(grid)
+    return rotation_rms_deg(grid, q_gt, q, "global")[0], _rms_unnormalized(q_gt, q)
+
+
+def _spy_packets(fe) -> dict:
+    """Hold every packet the front-end ``fe`` gathers from its device ring
+    against the packet gathered from the host store for the same span
+    (torch.equal, dtypes too), and count both gathers. Returns the live
+    tally: ring, host, unequal, and s, the seconds the checks took (kept
+    out of the walls)."""
+    import torch
+
+    tally = {"ring": 0, "host": 0, "unequal": 0, "s": 0.0}
+    ring_gather, host_gather = fe._ring_packet, fe._packet
+
+    def ring_packet(beg, n, t_ref):
+        packet = ring_gather(beg, n, t_ref)
+        t0 = time.perf_counter()
+        xs, ys, ts, _ = fe.store.slice_abs(beg, beg + n)
+        host = host_gather(xs, ys, ts, t_ref)
+        tally["ring"] += 1
+        tally["unequal"] += not all(a.dtype == b.dtype and torch.equal(a, b)
+                                    for a, b in zip(packet, host))
+        tally["s"] += time.perf_counter() - t0
+        return packet
+
+    def packet(xs, ys, ts, t_ref):
+        tally["host"] += 1
+        return host_gather(xs, ys, ts, t_ref)
+
+    fe._ring_packet, fe._packet = ring_packet, packet
+    return tally
+
+
+def _push(slam, ev, lo: int, hi: int, chunk: int = 39_000) -> None:
+    for i in range(lo, hi, chunk):
+        j = min(i + chunk, hi)
+        slam.push_events(ev.xs[i:j], ev.ys[i:j], ev.ts[i:j], ev.pols[i:j])
+
+
+# Phase 4 runs the stock front-end schedule (the device ring) and then the
+# per-packet chain gathered from the host store; the cubic phase sets the
+# reference's spline_degree=3 launch knob.
+HOST_SCHEDULE = {"frontend.device_store": False, "frontend.batch_sweeps": 0}
+CUBIC_KEY = "backend.trajectory.spline_degree"
+CUBIC = {CUBIC_KEY: 3}
+
+
+def run_system(device: str = "cuda", overrides=None, label: str = "system",
+               duration: float = 2.0):
+    """Phase 4 (and the cubic phase): the stock preset, with ``overrides``
+    (dotted config keys), through the public entry points. Returns
+    (launches during the run, {check: passed}, the (T, 4) ang_vel_log, the
+    wall in s without the ring-packet checks, the CMaxSLAM)."""
+    import torch
+    from cmax_slam_tpu_torch.config import ijrr_config, replace
+    from cmax_slam_tpu_torch.ops import cuda_iwe
+    from cmax_slam_tpu_torch.system import CMaxSLAM
+
+    overrides = dict(overrides or {})
     t0 = time.perf_counter()
     ev, omega, calib = make_stream(duration)
     n = len(ev.ts)
-    _log(f"stream: {n} events over {duration} s ({time.perf_counter() - t0:.1f} s to generate)")
-    slam = CMaxSLAM(calib, ijrr_config(), device=device)
+    _log(f"{label}: {n} events over {duration} s ({time.perf_counter() - t0:.1f} s to "
+         f"generate), overrides {overrides}")
+    cfg = replace(ijrr_config(), **overrides)
+    slam = CMaxSLAM(calib, cfg, device=device)
+    tally = _spy_packets(slam.frontend)
 
     _reset_launches()
     t0 = time.perf_counter()
-    for i in range(0, n, chunk):
-        slam.push_events(ev.xs[i:i + chunk], ev.ys[i:i + chunk], ev.ts[i:i + chunk],
-                         ev.pols[i:i + chunk])
+    _push(slam, ev, 0, n)
     slam.flush()
     if device == "cuda":
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - tally["s"]
     launches = dict(cuda_iwe.LAUNCHES)
 
     be = slam.backend
     wins = slam.window_results()
     n_ba = sum(w.ran_ba for w in wins)
     log = slam.ang_vel_log
-    traj = be.traj
-    grid = np.linspace(traj.t_beg + 1e-6, traj.max_time() - 1e-6, 80)
-    q_gt = np.stack([spline._np_quat_exp(omega * t) for t in grid])
-    rms, _ = rotation_rms_deg(grid, q_gt, traj.evaluate(grid), "global")
+    rms, rms_raw = _rms_vs_truth(be.traj, omega)
+    counters = slam.metrics.counters
     timers = {k: round(v.total, 3) for k, v in slam.metrics.timers.items()}
-    _log(f"system: wall {wall:.2f} s for {duration} s of stream, realtime factor "
-         f"{duration / wall:.3f}; packets {len(log)}, windows {len(wins)} ({n_ba} with BA); "
-         f"trajectory RMS {rms:.4f} deg; timers_s {json.dumps(timers)}; "
-         f"counters {json.dumps(dict(slam.metrics.counters))}; launches {launches}; "
+    _log(f"{label}: wall {wall:.2f} s for {duration} s of stream (and {tally['s']:.2f} s "
+         f"of ring-packet checks), realtime factor {duration / wall:.3f}; packets "
+         f"{len(log)}, windows {len(wins)} ({n_ba} with BA); spline order {be.traj.order}; "
+         f"trajectory RMS {rms:.4f} deg ({rms_raw:.4f} unnormalized); packets gathered "
+         f"from the ring {tally['ring']} (unequal to the host packet {tally['unequal']}), "
+         f"from the host store {tally['host']}; timers_s "
+         f"{json.dumps(timers)}; counters {json.dumps(dict(counters))}; launches {launches}; "
          f"crop shapes {sorted(be._crop_shapes)}")
     checks = {
         "state on the device": all(t.device.type == device for t in (
@@ -610,8 +702,229 @@ def run_system(device: str = "cuda"):
         ">= 15 BA windows": n_ba >= 15,
         "finite omega log": log.shape[1] == 4 and bool(np.isfinite(log).all()),
         "RMS < 0.3 deg": rms < 0.3,
+        "spline order": be.traj.order == (4 if overrides.get(CUBIC_KEY) == 3 else 2),
     }
-    return launches, checks, log
+    if cfg.frontend.device_store:  # the stock schedule gathers from the ring
+        checks["packets gathered from the ring"] = (
+            tally["ring"] == counters["frontend.ring_packets"] > 0)
+        checks["ring packets torch.equal host packets"] = tally["unequal"] == 0
+    else:
+        checks["no ring packets"] = tally["ring"] == 0 and "frontend.ring_packets" not in counters
+    return launches, checks, log, wall, slam
+
+
+def run_ring_wrap(device: str = "cuda", duration: float = 0.6, capacity: int = 1 << 15):
+    """The stock preset with a device ring of ``capacity`` events on
+    ``duration`` s of phase 4's stream, cut halfway at a push, saved and
+    resumed in a fresh CMaxSLAM: 39 000-event pushes split into appends
+    that wrap, packets that wrap, a resync of more events than the ring
+    holds, and packets the ring has lapped gathered from the host store.
+    Every ring packet must be torch.equal to its host packet. Returns
+    (launches, {check: passed})."""
+    from cmax_slam_tpu_torch.config import ijrr_config, replace
+    from cmax_slam_tpu_torch.ops import cuda_iwe
+    from cmax_slam_tpu_torch.system import CMaxSLAM
+
+    ev, omega, calib = make_stream(duration)
+    n, chunk = len(ev.ts), 39_000
+    cfg = replace(ijrr_config(), **{"frontend.device_store_capacity": capacity})
+    _reset_launches()
+    t0 = time.perf_counter()
+    first = CMaxSLAM(calib, cfg, device=device)
+    tallies = [_spy_packets(first.frontend)]
+    cut = (n // 2) // chunk * chunk
+    _push(first, ev, 0, cut, chunk)
+    with tempfile.TemporaryDirectory(prefix="cmax_ring_") as tmp:
+        path = os.path.join(tmp, "cut.npz")
+        first.save_checkpoint(path)
+        resumed = CMaxSLAM(calib, cfg, device=device)
+        resumed.load_checkpoint(path)
+    ring = resumed.frontend._ring
+    window = resumed.store.total - resumed.store.base
+    tallies.append(_spy_packets(resumed.frontend))
+    _push(resumed, ev, resumed.raw_count, n, chunk)
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_iwe.LAUNCHES)
+    tally = {k: sum(t[k] for t in tallies) for k in tallies[0]}
+    log = np.concatenate([first.ang_vel_log, resumed.ang_vel_log])
+    err = np.linalg.norm(log[:, 1:] - omega, axis=1)
+    _log(f"ring_wrap: ring of {ring.capacity} events, {n} events over {duration} s cut at "
+         f"{cut}; resync of {window} stored events; packets {len(log)}: from the ring "
+         f"{tally['ring']} (unequal to the host packet {tally['unequal']}), lapped and "
+         f"gathered from the host store {tally['host']}; median |omega - omega_true| "
+         f"{np.median(err):.4f} rad/s; wall {wall:.2f} s; launches {launches}")
+    return launches, {
+        "ring wrapped": ring.hi > 2 * ring.capacity,
+        "resync of more events than the ring holds": window > ring.capacity,
+        "packets gathered from the ring": tally["ring"] > 0,
+        "ring packets torch.equal host packets": tally["unequal"] == 0,
+        "lapped packets gathered from the host store": tally["host"] > 0,
+        "every packet gathered once": tally["ring"] + tally["host"] == len(log),
+        "median omega error < 0.1 rad/s": bool(np.median(err) < 0.1),
+    }
+
+
+def packet_solver(slam, ev, k: int):
+    """A function that solves packet ``k`` of a finished run again, alone,
+    from a given warm start, on a fresh front-end that gathers it from the
+    host store, and returns (omega, cost, iterations)."""
+    from cmax_slam_tpu_torch.config import replace
+    from cmax_slam_tpu_torch.frontend import Frontend
+
+    fe0 = slam.frontend
+    est = fe0.estimates[k]
+    beg, end = est.span
+    fe = Frontend(fe0.cam, fe0.lut.cpu().numpy(), replace(fe0.cfg, device_store=False),
+                  device=fe0.device)
+    fe.store.append(ev.xs[:end], ev.ys[:end], ev.ts[:end], ev.pols[:end])
+    fe._t0 = fe0._t0
+
+    def solve(omega0):
+        fe.omega = omega0
+        fe._t_packet = est.t
+        e = fe._process_packet(beg, end)
+        return e.omega, e.cost, e.iters
+
+    return solve
+
+
+def compare_schedules(slam_stock, wall_stock, slam_host, wall_host, duration: float = 2.0,
+                      reach: float = 0.02, max_rounds: int = 48) -> dict:
+    """Phase 4's stream on both schedules: the same packet grid, and per-packet
+    omega apart only by K1's atomic sum order (the schedules give bit-equal
+    solver inputs, which run_system holds packet by packet). The packet that
+    differs most is solved again alone from each schedule's warm start (its
+    left neighbour's omega in that run) on the card, four rounds, and where
+    the two logs differ there by 0.1 rad/s or more, up to ``max_rounds``
+    until the re-solves have reached each logged value (within ``reach``
+    rad/s): both must be optima that the same inputs lead to. Returns
+    {check: passed}."""
+    ev, omega, _ = make_stream(duration)
+    log_stock, log_host = slam_stock.ang_vel_log, slam_host.ang_vel_log
+    same_grid = log_stock.shape == log_host.shape and np.allclose(
+        log_stock[:, 0], log_host[:, 0], atol=1e-9)
+    diff = (np.linalg.norm(log_stock[:, 1:] - log_host[:, 1:], axis=1) if same_grid
+            else np.array([np.inf]))
+    k = int(np.argmax(diff))
+    checks = {"same packet grid": same_grid,
+              "median omega difference < 0.01 rad/s": float(np.median(diff)) < 0.01}
+    _log(f"schedules: stock (ring) wall {wall_stock:.2f} s, host per-packet wall "
+         f"{wall_host:.2f} s; per-packet |omega difference| median {np.median(diff):.3e} "
+         f"max {diff.max():.3e} rad/s, {int((diff == 0).sum())} of {len(diff)} packets equal")
+    if not same_grid:
+        return checks
+    logged = {"stock": log_stock[k, 1:], "host": log_host[k, 1:]}
+    warm = {name: (log[k - 1, 1:] if k else np.zeros(3))
+            for name, log in (("stock", log_stock), ("host", log_host))}
+    solve = packet_solver(slam_stock, ev, k)
+    solves = []  # (warm start, omega, cost)
+    for r in range(max_rounds):
+        solves += [(name, *solve(w)[:2]) for name, w in warm.items()]
+        reached = {name: min(np.linalg.norm(o - v) for _, o, _ in solves)
+                   for name, v in logged.items()}
+        if r >= 3 and (diff[k] < 0.1 or max(reached.values()) < reach):
+            break
+    ends = []  # distinct end points: [omega, cost, {warm start: count}]
+    for name, o, c in solves:
+        e = next((e for e in ends if np.linalg.norm(e[0] - o) < reach), None)
+        if e is None:
+            e = [o, c, {}]
+            ends.append(e)
+        e[2][name] = e[2].get(name, 0) + 1
+    _log(f"schedules: worst packet {k} at t = {log_stock[k, 0] - log_stock[0, 0]:.3f} s "
+         f"({diff[k]:.4f} rad/s apart); |omega - omega_true| stock "
+         f"{np.linalg.norm(logged['stock'] - omega):.4f}, host "
+         f"{np.linalg.norm(logged['host'] - omega):.4f}; warm starts "
+         f"{np.linalg.norm(warm['stock'] - warm['host']):.3e} rad/s apart; {len(solves)} "
+         f"re-solves end at: " + "; ".join(
+             f"omega {np.round(o, 4).tolist()} cost {c:.6f} (|omega - omega_true| "
+             f"{np.linalg.norm(o - omega):.4f}; from the warm start of {n})"
+             for o, c, n in ends)
+         + f"; nearest to the stock value {reached['stock']:.4f}, to the host value "
+         f"{reached['host']:.4f} rad/s")
+    checks["largest difference < 0.1 rad/s, or both values optima of the same inputs"] = bool(
+        diff[k] < 0.1 or max(reached.values()) < reach)
+    return checks
+
+
+def run_resume(device: str = "cuda", duration: float = 1.0):
+    """The resume pair: phase 4's stream (``duration`` s) run uninterrupted,
+    and cut once two windows have completed, saved with save_checkpoint,
+    loaded by load_checkpoint into a fresh CMaxSLAM (which rebuilds its
+    device ring from the restored store) and fed the remaining events. The
+    resumed trajectory must lie within 0.05 deg RMS of the uninterrupted one
+    on their common span (the JAX package's gate, tests/
+    test_checkpoint_resume.py). The cut run also goes on to the end: its gap
+    to the resumed run is the resume's alone, its gap to the uninterrupted
+    run the card's run-to-run spread (K1 sums in a run-dependent order).
+    Returns (launches of the three runs, {check: passed})."""
+    import torch
+    from cmax_slam_tpu_torch.config import ijrr_config
+    from cmax_slam_tpu_torch.ops import cuda_iwe
+    from cmax_slam_tpu_torch.system import CMaxSLAM
+    from cmax_slam_tpu_torch.utils.evaluate import rotation_rms_deg
+
+    ev, omega, calib = make_stream(duration)
+    n, chunk = len(ev.ts), 39_000
+    _reset_launches()
+    t0 = time.perf_counter()
+    whole = CMaxSLAM(calib, ijrr_config(), device=device)
+    _push(whole, ev, 0, n, chunk)
+    cut_run = CMaxSLAM(calib, ijrr_config(), device=device)
+    cut = 0
+    while cut_run.backend.count_window < 2 and cut < n:
+        _push(cut_run, ev, cut, cut + chunk, chunk)
+        cut = min(cut + chunk, n)
+    with tempfile.TemporaryDirectory(prefix="cmax_resume_") as tmp:
+        path = os.path.join(tmp, "cut.npz")
+        cut_run.save_checkpoint(path)
+        resumed = CMaxSLAM(calib, ijrr_config(), device=device)
+        resumed.load_checkpoint(path)
+    windows_at_cut = cut_run.backend.count_window
+    ring = resumed.frontend._ring
+    resynced = ring.hi == resumed.store.total and resumed.store.base < cut
+    _push(resumed, ev, resumed.raw_count, n, chunk)
+    _push(cut_run, ev, cut, n, chunk)  # the cut run goes on as if never saved
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_iwe.LAUNCHES)
+
+    def gap(a, c):
+        ta, tc = a.backend.traj, c.backend.traj
+        grid = np.linspace(max(ta.t_beg, tc.t_beg) + 1e-6,
+                           min(ta.max_time(), tc.max_time()) - 1e-6, 100)
+        rms, errs = rotation_rms_deg(grid, ta.evaluate(grid), tc.evaluate(grid), "global")
+        return rms, errs.max(), grid[-1] - grid[0]
+
+    rms, worst, span = gap(whole, resumed)
+    ta, tr = whole.backend.traj, resumed.backend.traj
+    grid = np.linspace(max(ta.t_beg, tr.t_beg) + 1e-6, min(ta.max_time(), tr.max_time()) - 1e-6,
+                       100)
+    rms_raw = _rms_unnormalized(ta.evaluate(grid), tr.evaluate(grid))
+    rms_saved, _, _ = gap(cut_run, resumed)
+    rms_runs, _, _ = gap(whole, cut_run)
+    t_a = [t for t, _ in whole.backend.trajectory_log]
+    t_c = [t for t, _ in resumed.backend.trajectory_log]
+    ring_packets = resumed.metrics.counters.get("frontend.ring_packets", 0)
+    _log(f"resume: {duration} s stream cut at {cut} of {n} events after "
+         f"{windows_at_cut} windows; resumed vs uninterrupted RMS {rms:.4f} deg "
+         f"(max {worst:.4f}; {rms_raw:.4f} unnormalized) over {span:.3f} s; resumed vs the saved run gone on "
+         f"{rms_saved:.4f} deg; the two unresumed runs {rms_runs:.4f} deg; windows "
+         f"{resumed.backend.count_window} vs {whole.backend.count_window}; ring rebuilt from "
+         f"{resumed.store.total - resumed.store.base} stored events, {ring_packets:.0f} "
+         f"packets gathered from it after the resume; wall {wall:.2f} s for three runs; "
+         f"launches {launches}")
+    checks = {
+        "cut after >= 2 windows, before the end": windows_at_cut >= 2 and cut < n,
+        "ring resynced on restore": resynced,
+        "resumed packets gathered from the ring": ring_packets > 0,
+        "same window count": resumed.backend.count_window == whole.backend.count_window,
+        "same refined-pose times": len(t_a) == len(t_c) and np.allclose(t_a, t_c, atol=1e-9),
+        "resumed vs uninterrupted RMS < 0.05 deg": bool(rms < 0.05),
+        "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+    }
+    return launches, checks
 
 
 def run_cli(device: str = "cuda", duration: float = 2.0):
@@ -945,8 +1258,19 @@ def main() -> int:
     cuda_iwe.build()
     _log(f"build: {time.perf_counter() - t0:.2f} s ({cuda_iwe.library_path().name})")
     kernels = check_kernels(np.random.default_rng(0))
-    launches, checks, seq_log = run_system()
+    launches, checks, seq_log, wall, slam = run_system()
     _require("system", checks)
+    host_launches, checks, _, host_wall, host_slam = run_system(overrides=HOST_SCHEDULE,
+                                                                label="system_host")
+    _require("system_host", checks)
+    _require("schedules", compare_schedules(slam, wall, host_slam, host_wall))
+    del slam, host_slam
+    ring_launches, checks = run_ring_wrap()
+    _require("ring_wrap", checks)
+    cubic_launches, checks, _, _, _ = run_system(overrides=CUBIC, label="cubic")
+    _require("cubic", checks)
+    resume_launches, checks = run_resume()
+    _require("resume", checks)
     cli_launches, checks = run_cli()
     _require("cli", checks)
     batched_launches, checks = run_batched(seq_log=seq_log)
@@ -961,7 +1285,9 @@ def main() -> int:
                 "bwd": "cmax_slam_tpu/ops/pallas_iwe.py:307 (_vjp_bwd, pallas_call at :350; "
                        "kernel bodies _bwd_kernel_lanes :200 and _bwd_kernel :149)"}
     names = {"fwd": "vote_fwd", "bwd": "vote_bwd"}
-    paths = {"system": launches, "cli": cli_launches, "batched": batched_launches,
+    paths = {"system": launches, "system_host": host_launches, "ring_wrap": ring_launches,
+             "cubic": cubic_launches,
+             "resume": resume_launches, "cli": cli_launches, "batched": batched_launches,
              "window_shard": shard_launches, "replay": replay_launches}
 
     def by_path(key):

@@ -149,10 +149,6 @@ def main(argv=None) -> int:
     # in bounded memory.
     print(f"{_TAG} streaming events from {args.events} on {args.device}",
           file=sys.stderr)
-    print(f"{_TAG} front-end schedule: sequential per-packet solves "
-          f"(frontend.batch_sweeps={cfg.frontend.batch_sweeps} and "
-          f"frontend.device_store={cfg.frontend.device_store} are accepted "
-          f"and not implemented by the port)", file=sys.stderr)
 
     slam = CMaxSLAM(calib, cfg, device=args.device, run_backend=not args.no_backend)
     skip = 0

@@ -99,12 +99,15 @@ class FrontendConfig:
     # Coarse-to-fine CMax (no reference counterpart): solve on a 3x-blurred
     # IWE first, then refine at blur_sigma. Off by default.
     coarse_to_fine: bool = False
-    # Stride batching of the JAX package (several packets per device
-    # program). Scheduling only: the warm-start chain and solver inputs are
-    # those of the per-packet path, which the port runs for any value.
+    # Stride batching of the JAX package (the packets ready at one push in
+    # one device program, with the per-packet path's numerics). Accepted
+    # and without effect: the port solves every packet on the per-packet
+    # chain, whose solves read f and g on the host.
     batch_sweeps: int = 2
-    # Device-resident event ring of the JAX package. Scheduling only, like
-    # batch_sweeps; the port gathers each packet from the host store.
+    # Device-resident event ring (io/devring.py): each event is uploaded
+    # once and packets are gathered on the device; 0 = auto capacity (>= 16
+    # packets, at least 2^21 events). Scheduling only: the solver's inputs
+    # are bit-identical to those gathered from the host store.
     device_store: bool = True
     device_store_capacity: int = 0
 

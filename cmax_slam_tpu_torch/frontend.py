@@ -16,11 +16,16 @@ Packet semantics mirror the reference (ang_vel_estimator.cpp:68-135):
   than 2 events) yields omega = 0 and resets the warm start;
 - omega is warm-started from the previous packet.
 
-Scheduling: the JAX package can solve a stride's packets in one device
-program (``batch_sweeps``) and gather them from a device-resident event ring
-(``device_store``); both are documented there to give the per-packet path's
-solver inputs and warm-start chain. The port runs the sequential per-packet
-chain for any value of either.
+Scheduling:
+- ``device_store``: each event is uploaded once into a device ring
+  (io/devring.py) and packets are gathered from it on the device; a packet
+  the ring has lapped, or a ring out of step with the store, is gathered
+  from the host store instead. Both give bit-identical solver inputs.
+- ``batch_sweeps`` is accepted and has no effect. The JAX package solves
+  the packets ready at one push (a stride) in one device program with the
+  per-packet path's numerics (cmax_slam_tpu/frontend.py:191-209); the
+  port's solves read f and g on the host, so it has no such program, and
+  every ready packet goes through the same per-packet chain.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 
 from .config import FrontendConfig
 from .io import native
+from .io.devring import DeviceEventRing, _next_pow2
 from .io.events import EventStore
 from .ops import optim, warp_local
 from .utils.device import resolve_device
@@ -73,6 +79,14 @@ class Frontend:
         # Pad to a multiple of the event batch size (batch-midpoint dts).
         bs = cfg.warp.event_batch_size
         self.packet_size = ((2 * self.half + bs - 1) // bs) * bs
+        self._lanes = torch.arange(self.packet_size, device=self.device)
+
+        # The ring covers >= 16 packets of reach-back (at least 2^21 events,
+        # 16 MiB), rounded up to a power of two.
+        self._ring: Optional[DeviceEventRing] = None
+        if cfg.device_store:
+            cap = cfg.device_store_capacity or max(16 * self.packet_size, 1 << 21)
+            self._ring = DeviceEventRing(_next_pow2(cap), cam.width, device=self.device)
 
         self._initialized = False
         self._t0: float = 0.0  # stream epoch: all device times are t - _t0
@@ -107,6 +121,10 @@ class Frontend:
         self._next_check_abs = int(d["fe_next_check_abs"])
         self._pending = [(int(a), int(b)) for a, b in np.asarray(d["fe_pending"]).reshape(-1, 2)]
         self.omega = np.asarray(d["fe_omega"], np.float64)
+        if self._ring is not None:
+            # The ring is never serialized: rebuild it from the restored
+            # store's resident window.
+            self._ring.resync(self.store, self._t0)
 
     @property
     def omega(self) -> np.ndarray:
@@ -130,6 +148,8 @@ class Frontend:
             self._cursor = self._t_packet
             self._initialized = True
         self.store.append(xs, ys, ts, ps)
+        if self._ring is not None:
+            self._ring.append(xs, ys, (ts - self._t0).astype(np.float32))
         self._scan_triggers()
         out = []
         while self._pending and self.store.total > self._pending[0][1]:
@@ -184,6 +204,27 @@ class Frontend:
             weights=valid_t.to(torch.float32),
         )
 
+    def _ring_packet(self, beg: int, n: int, t_ref: float) -> warp_local.EventPacket:
+        """Gather packet [beg, beg + n) from the device ring, padded to the
+        static size: the values and dtypes ``_packet`` gives."""
+        ring = self._ring
+        idx, ts = ring.buffers
+        pos = (self._lanes + beg) & (ring.capacity - 1)
+        valid = self._lanes < n
+        return warp_local.EventPacket(
+            bearings=self.lut[torch.where(valid, idx[pos], 0)],
+            dts=warp_local.batch_midpoint_dts(torch.where(valid, ts[pos], 0.0), valid,
+                                              self.cfg.warp.event_batch_size, t_ref),
+            weights=valid.to(torch.float32),
+        )
+
+    def _from_ring(self, beg: int) -> bool:
+        """Whether the packet starting at absolute index ``beg`` is gathered
+        from the ring: it holds every stored event (in step with the store)
+        and has not lapped ``beg``."""
+        ring = self._ring
+        return ring is not None and ring.hi == self.store.total and ring.resident(beg)
+
     def _process_packet(self, beg: int, end: int) -> AngVelEstimate:
         cfg = self.cfg
         xs, ys, ts, _ = self.store.slice_abs(beg, end)
@@ -216,7 +257,12 @@ class Frontend:
             )
 
         with self.metrics.timer("frontend.solve"), torch.no_grad():
-            packet = self._packet(xs, ys, ts, float(np.float32(t_packet - self._t0)))
+            t_ref = float(np.float32(t_packet - self._t0))
+            if self._from_ring(beg):
+                packet = self._ring_packet(beg, n, t_ref)
+                self.metrics.count("frontend.ring_packets")
+            else:
+                packet = self._packet(xs, ys, ts, t_ref)
             x0, iters_coarse = self._omega, 0
             if cfg.coarse_to_fine:
                 # Coarse stage on a 3x-blurred IWE with half the budget, then

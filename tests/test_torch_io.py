@@ -205,6 +205,25 @@ def test_tum_roundtrip_matches_jax(tmp_path):
     assert open(p).read() == "# empty trajectory\n"
 
 
+def test_rms_reads_zero_between_identical_float32_trajectories():
+    """The port's rotation_rms_deg normalizes the quaternions; the JAX
+    package's takes them as they are. Unit float32 quaternions are unit
+    only to ~1e-7, which puts a floor of ~0.016 deg under the JAX reading
+    of a trajectory against itself; the port's reads ~0. On unit float64
+    quaternions both read the same."""
+    rng = np.random.default_rng(4)
+    q = rng.normal(size=(100, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    q32, t = q.astype(np.float32), np.arange(100) * 0.01
+    rms, errs = evaluate.rotation_rms_deg(t, q32, q32, "global")
+    assert rms < 1e-5 and errs.max() < 1e-5
+    assert jevaluate.rotation_rms_deg(t, q32, q32, "global")[0] > 1e-3
+    q2 = q + rng.normal(size=q.shape) * 0.01
+    q2 /= np.linalg.norm(q2, axis=1, keepdims=True)
+    np.testing.assert_allclose(evaluate.rotation_rms_deg(t, q, q2, "global")[0],
+                               jevaluate.rotation_rms_deg(t, q, q2, "global")[0], rtol=1e-9)
+
+
 def _decode_png(data: bytes) -> np.ndarray:
     """Inverse of write_png for its own output (filter 0 on every row)."""
     assert data[:8] == b"\x89PNG\r\n\x1a\n"

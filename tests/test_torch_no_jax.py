@@ -55,7 +55,7 @@ def test_importing_every_module_needs_no_jax_and_builds_nothing(tmp_path):
     expected = {"cmax_slam_tpu_torch." + m for m in (
         "backend", "calib", "config", "frontend", "lie", "spline", "system",
         "ops.scatter", "ops.cuda_iwe", "ops.blur", "ops.contrast", "ops.warp_local",
-        "ops.optim", "ops.warp_pano", "io.events", "io.native", "io.synthetic",
+        "ops.optim", "ops.warp_pano", "io.events", "io.native", "io.synthetic", "io.devring",
         "utils.metrics", "utils.evaluate", "utils.device", "cli", "io.streams", "io.rosbag",
         "utils.image", "parallel", "parallel.sharding", "parallel.batched",
         "parallel.window_shard", "parallel.replay")}
