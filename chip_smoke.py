@@ -12,25 +12,29 @@ Phases, in order; any failure exits non-zero:
    the kernel-alone headroom shape (2^20 events on 240x180), with dropped
    events, padding and integer coordinates, and operands shared across
    images read in place; both K1 variants (P, G; cuda_iwe.plan_vote_fwd)
-   forced at every shape, so P meets band edges on the 384x384 crop, K2's G
-   forced at every shape and its S (cuda_iwe.plan_vote_bwd) at every shape
+   forced at every shape, so P meets band edges on the 384x384 crop, and
+   each variant voting only the dropped events must give an all-zero image;
+   K2's G forced at every shape and its S (cuda_iwe.plan_vote_bwd) at every shape
    whose image it stages whole (not the 384x384 crop or the 512x1024
    panorama), and the planners' picks through autograd. K2 runs in two
    modes: "full" (dw too, the TPU kernel's whole function) and "paths" (no
    dw, as every path calls it, weights read in place); a small unaligned
    shape with a ragged row end checks the scalar loads, and a launch of
    more than 2^31 events G's 64-bit indexing. Prints per shape the
-   planners' variants, each
-   variant's device time in turns (G, P, P, G; G, S, S, G per K2 mode)
-   beside the bound in bytes and us, the launch floor (an empty kernel's
-   device time), then the wrapper and plain times and, for K2, the
-   bilinear gather of F.grid_sample as a yardstick;
+   planners' variants, each variant's device time in turns (G with the
+   zero fill of its output, P, P, G; then the fill alone and G alone;
+   G, S, S, G per K2 mode) beside the bound in bytes and us and its share,
+   the launch floor (an empty kernel's device time), then the wrapper time
+   of each variant and the plain time and, for K2, the bilinear gather of
+   F.grid_sample as a yardstick;
 4. system: CMaxSLAM on the stock ijrr preset, driven through push_events on a
    2.0 s synthetic 240x180 stream at 390k ev/s (make_stream), must keep its
    state on the card, gather its packets from the device event ring (the
    stock front-end schedule), each torch.equal to the packet gathered from
-   the host store, run at least 15 BA windows through both kernels and
-   track the ground truth to < 0.3 deg RMS; then the same stream on the
+   the host store, run at least 15 BA windows through both kernels (K1's
+   launches counted and printed by shape bucket: packet, sweep, crop,
+   split, with the variant the planner took) and track the ground truth to
+   < 0.3 deg RMS; then the same stream on the
    per-packet schedule from the host store (frontend.device_store=False,
    batch_sweeps=0), with the same checks, the same packet grid and a median
    omega difference under 0.01 rad/s (the schedules give bit-equal solver
@@ -71,8 +75,9 @@ Before the last line it prints one JSON object with every kernel's route,
 source, launches on each path (the two system runs of phase 4, the small
 ring, the cubic system, the resume pair, the CLI run of phase 5, the batched run of phase
 6 and the window and replay runs of phase 7, each counted from 0), error,
-times and bound, and the same per
-variant; the last line is ``{"ok": true, "device": {...}}``. Imports
+times and bound, and the same per variant (K1: G, P), with K1's launches
+on the system path by shape bucket; the last line is ``{"ok": true,
+"device": {...}}``. Imports
 neither jax nor the JAX package.
 """
 
@@ -273,7 +278,6 @@ def check_kernels(rng) -> dict:
     _log(f"launch floor (empty kernel): device {floor[0][0]:.4f}/{floor[1][0]:.4f} ms "
          f"(events {floor[0][1]:.4f}/{floor[1][1]:.4f})")
     out["bwd"]["floor_ms"] = floor_ms
-    turns = cuda_iwe.VARIANTS + cuda_iwe.VARIANTS[::-1]
     for tag, b, n, H, W, kernels, rows in SHAPES:
         px, py, wt = _events(rng, n, H, W, rows, "cuda")
         r0 = min(rows)
@@ -283,9 +287,11 @@ def check_kernels(rng) -> dict:
         # Atomic adds land in run-dependent order: float32 sums agree to a
         # few ulps of the largest pixel.
         tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        variants = list(cuda_iwe.VARIANTS)
         plans = {v: cuda_iwe.plan_vote_fwd(b, n, H, W, *attrs, variant=v)
-                 for v in (None,) + cuda_iwe.VARIANTS}
+                 for v in [None, *variants]}
         errs = {}
+        dropped = _dropped(n)
         for v in plans:  # the planner's route through ops/scatter.vote, then each forced
             if v is None:
                 img = scatter.vote(*(_lead(t, r0) for t in (px, py, wt)), H, W).reshape(b, H, W)
@@ -297,42 +303,64 @@ def check_kernels(rng) -> dict:
                 raise AssertionError(f"vote_fwd {tag} variant {plans[v].variant}"
                                      f"{'' if v else ' (planned)'}: max err {err} > {tol}")
             errs[v or "planned"] = err
-        del img, ref
+        # Dropped events (NaN and infinite coordinates, weight-0 padding) add
+        # exactly nothing: voted alone, every variant gives an all-zero image.
+        dead = [t[:, dropped].contiguous() for t in (px, py, wt)]
+        for v in variants:
+            img = cuda_iwe.vote_fwd(*dead, H, W, b, variant=v)
+            torch.cuda.synchronize()
+            if bool(img.any()):
+                raise AssertionError(f"vote_fwd {tag} variant {v}: dropped events voted")
+        del img, ref, dead
         img = torch.empty((b, H, W), device="cuda")
-        dev_t = {v: [] for v in cuda_iwe.VARIANTS}
-        evs = {v: [] for v in cuda_iwe.VARIANTS}
-        for v in turns:
-            plan = plans[v]
 
-            def launch(plan=plan):
-                if plan.variant != "P":
+        def launcher(plan, fill=True):
+            def launch():
+                if fill:
                     img.zero_()
                 cuda_iwe.launch_fwd(plan, px, py, wt, img, b, H, W)
+            return launch
 
-            kern, ev = device_ms(launch)
+        # Device time in turns: G with the fill its zeroed output needs
+        # ("G" is G plus fill, as the wrapper runs it) and P (which writes
+        # every pixel), then back; then the fill alone and G alone on
+        # an image already zeroed (it accumulates: only its time counts).
+        timed = {v: launcher(plans[v], v == "G") for v in variants}
+        timed |= {"fill": lambda: img.zero_(), "G_alone": launcher(plans["G"], False)}
+        order = variants + variants[::-1] + ["fill", "G_alone", "G_alone", "fill"]
+        dev_t = {v: [] for v in timed}
+        evs = {v: [] for v in timed}
+        for v in order:
+            kern, ev = device_ms(timed[v])
             dev_t[v].append(kern)
             evs[v].append(ev)
         del img
         ms = _time_ms(lambda: cuda_iwe.vote_fwd(px, py, wt, H, W, b))
+        wrapper = {v: _time_ms(lambda v=v: cuda_iwe.vote_fwd(px, py, wt, H, W, b, variant=v))
+                   for v in variants}
         plain_ms = _time_ms(lambda: scatter.bilinear_accumulate(*grouped, H, W))
         planned = plans[None]
         bd = bound("fwd", b, n, H, W, rows)
         dev_ms = float(np.mean(dev_t[planned.variant]))
         entry = {"plan": planned._asdict(), **bd, "device_ms": dev_ms, "ms": ms,
-                 "plain_ms": plain_ms, "variants": {
-                     v: {"max_abs_err": errs[v], "device_ms": dev_t[v], "events_ms": evs[v]}
-                     for v in cuda_iwe.VARIANTS}}
+                 "plain_ms": plain_ms, "fill_ms": dev_t["fill"], "g_alone_ms": dev_t["G_alone"],
+                 "variants": {
+                     v: {"max_abs_err": errs[v], "device_ms": dev_t[v], "events_ms": evs[v],
+                         "wrapper_ms": wrapper[v], "plan": plans[v]._asdict()}
+                     for v in variants}}
         _log(f"vote_fwd {tag:8s} B={b} N={n} {H}x{W} rows {rows}: planner "
              f"{planned.variant} ({planned.rows} rows x {planned.bands} bands, "
              f"{planned.smem_bytes} B); max_abs_err {errs['planned']:.3e} planned, "
-             + ", ".join(f"{v} {errs[v]:.3e} ({plans[v].bands} bands)"
-                         for v in cuda_iwe.VARIANTS)
-             + f" (tol {tol:.3e}); device ms in turns "
-             + ", ".join(f"{v} {a:.4f}/{c:.4f} (events {evs[v][0]:.4f}/{evs[v][1]:.4f})"
-                         for v, (a, c) in dev_t.items())
+             + ", ".join(f"{v} {errs[v]:.3e} ({plans[v].bands} bands)" for v in variants)
+             + f" (tol {tol:.3e}); device ms in turns (G with its fill) "
+             + ", ".join(f"{v} {'/'.join(f'{a:.4f}' for a in t)} (events "
+                         f"{'/'.join(f'{e:.4f}' for e in evs[v])})" for v, t in dev_t.items())
              + f"; bound {bd['bytes'] / 1e6:.3f} MB, {bd['bound_ms'] * 1e3:.2f} us "
-             f"({bd['bound_by']}), planned at {bd['bound_ms'] / dev_ms:.1%} of it; "
-             f"wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms")
+             f"({bd['bound_by']}), planned at {bd['bound_ms'] / dev_ms:.1%} of it"
+             + "".join(f", {v} {bd['bound_ms'] / np.mean(dev_t[v]):.1%}" for v in variants)
+             + f"; wrapper {ms:.4f} ms planned, "
+             + ", ".join(f"{v} {t:.4f}" for v, t in wrapper.items())
+             + f"; plain {plain_ms:.4f} ms")
         out["fwd"]["max_abs_err"] = max([out["fwd"]["max_abs_err"], *errs.values()])
         out["fwd"]["by_shape"][tag] = entry
         del grouped
@@ -650,12 +678,55 @@ CUBIC_KEY = "backend.trajectory.spline_degree"
 CUBIC = {CUBIC_KEY: 3}
 
 
+def _fwd_bucket(b: int, H: int, W: int, cam_hw, pano_hw) -> str:
+    """The phase-3 shape a K1 launch of the paths stands for: the packet
+    and the rung sweep on the camera image, the old/new split on the
+    panorama, the back-end crop on any other image."""
+    if (H, W) == cam_hw:
+        return {1: "packet", 9: "sweep"}.get(b, f"camera b={b}")
+    if (H, W) == pano_hw:
+        return "split" if b == 2 else f"panorama b={b}"
+    return "crop" if b == 1 else f"crop b={b}"
+
+
+def _spy_fwd_shapes(tally: dict, cam_hw, pano_hw):
+    """Count each K1 launch into ``tally`` by its shape bucket: launches,
+    events and launches per planned variant. Returns the function that
+    removes the spy. The spy only reads shapes; the launches are the
+    wrapper's own."""
+    from cmax_slam_tpu_torch.ops import cuda_iwe
+
+    vote_fwd = cuda_iwe.vote_fwd
+
+    def counted(px, py, w, height, width, b=None, **kw):
+        bb = max(t.shape[0] for t in (px, py, w)) if b is None else b
+        if bb * px.shape[1] * height * width == 0:  # no launch
+            return vote_fwd(px, py, w, height, width, b, **kw)
+        plan = cuda_iwe.plan_vote_fwd(bb, px.shape[1], height, width,
+                                      *cuda_iwe.device_attrs(px.device), variant=kw.get("variant"))
+        s = tally.setdefault(_fwd_bucket(bb, height, width, cam_hw, pano_hw),
+                             {"launches": 0, "events": 0, "variants": {}})
+        s["launches"] += 1
+        s["events"] += bb * px.shape[1]
+        s["variants"][plan.variant] = s["variants"].get(plan.variant, 0) + 1
+        return vote_fwd(px, py, w, height, width, b, **kw)
+
+    cuda_iwe.vote_fwd = counted
+
+    def restore():
+        cuda_iwe.vote_fwd = vote_fwd
+
+    return restore
+
+
 def run_system(device: str = "cuda", overrides=None, label: str = "system",
-               duration: float = 2.0):
+               duration: float = 2.0, shapes: dict | None = None):
     """Phase 4 (and the cubic phase): the stock preset, with ``overrides``
     (dotted config keys), through the public entry points. Returns
     (launches during the run, {check: passed}, the (T, 4) ang_vel_log, the
-    wall in s without the ring-packet checks, the CMaxSLAM)."""
+    wall in s without the ring-packet checks, the CMaxSLAM). ``shapes``, if
+    given, is filled with the run's K1 launches by shape bucket
+    (``_spy_fwd_shapes``)."""
     import torch
     from cmax_slam_tpu_torch.config import ijrr_config, replace
     from cmax_slam_tpu_torch.ops import cuda_iwe
@@ -670,13 +741,20 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
     cfg = replace(ijrr_config(), **overrides)
     slam = CMaxSLAM(calib, cfg, device=device)
     tally = _spy_packets(slam.frontend)
+    pano = cfg.backend.pano_map
+    restore = (_spy_fwd_shapes(shapes, (calib.height, calib.width),
+                               (pano.pano_height, pano.pano_width))
+               if shapes is not None else (lambda: None))
 
     _reset_launches()
     t0 = time.perf_counter()
-    _push(slam, ev, 0, n)
-    slam.flush()
-    if device == "cuda":
-        torch.cuda.synchronize()
+    try:
+        _push(slam, ev, 0, n)
+        slam.flush()
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        restore()
     wall = time.perf_counter() - t0 - tally["s"]
     launches = dict(cuda_iwe.LAUNCHES)
 
@@ -1258,7 +1336,12 @@ def main() -> int:
     cuda_iwe.build()
     _log(f"build: {time.perf_counter() - t0:.2f} s ({cuda_iwe.library_path().name})")
     kernels = check_kernels(np.random.default_rng(0))
-    launches, checks, seq_log, wall, slam = run_system()
+    fwd_buckets = {}
+    launches, checks, seq_log, wall, slam = run_system(shapes=fwd_buckets)
+    _log("system: K1 launches by shape bucket "
+         + json.dumps(dict(sorted(fwd_buckets.items(), key=lambda kv: -kv[1]["launches"]))))
+    checks["K1 launches counted by shape"] = (
+        sum(s["launches"] for s in fwd_buckets.values()) == launches["fwd"])
     _require("system", checks)
     host_launches, checks, _, host_wall, host_slam = run_system(overrides=HOST_SCHEDULE,
                                                                 label="system_host")
@@ -1310,6 +1393,9 @@ def main() -> int:
                    | {"plan": s["plan"]["variant"]}
                    for tag, s in v["by_shape"].items()}}
         if k == "fwd":
+            row["launches_by_shape"] = fwd_buckets  # the system path's K1 launches
+            for tag, s in v["by_shape"].items():
+                row["by_shape"][tag] |= {"fill_ms": s["fill_ms"], "g_alone_ms": s["g_alone_ms"]}
             row["variants"] = {
                 var: {"launches": launches[f"fwd_{var}"],
                       "launches_by_path": by_path(f"fwd_{var}"),

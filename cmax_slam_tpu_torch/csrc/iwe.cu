@@ -22,9 +22,13 @@
 //   images (the lane-batched tracker's), in bands thinned to fill one wave of
 //   blocks.
 // - G, global atomics. One thread per event adds its four taps straight into
-//   a zeroed image with global float atomics: bound by atomic throughput to
-//   L2. For narrow launches (the card idles and the launch dominates) and
-//   images whose rows are too wide for a band plan worth having.
+//   a zeroed image with global float atomics (a native add in L2): bound by
+//   atomic throughput to L2, and for narrow launches by the launch and the
+//   zero fill (a second launch). For narrow launches and images whose rows
+//   are too wide for a band plan worth having. A cluster-owned image in
+//   distributed shared memory lost to G with its fill at every narrow shape:
+//   sm_90 has no float add in shared memory, so each tap there is a
+//   compare-and-swap loop (PERF.md).
 //
 // K2 iwe_vote_bwd replaces the Pallas VJP (_vjp_bwd: _bwd_kernel_lanes with
 // _hats_T, and _bwd_kernel with _hats for the "rows"/"mixed" orientations,

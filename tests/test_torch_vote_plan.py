@@ -29,6 +29,11 @@ card, and nothing detects one.
     gradients and the JAX package's Pallas VJP (interpret mode), to 1e-5,
     on events on the image's border rows and columns, on integers, NaN,
     infinite and with weight 0.
+(h) Dropped events alone vote an all-zero image (P's emulation, the plain
+    vote, JAX's), as chip_smoke checks each K1 variant on the card.
+(i) chip_smoke's count of the system path's K1 launches by shape: each
+    bucket names the phase-3 shape it stands for, and the spy counts each
+    launch once and is removed.
 """
 
 import jax
@@ -186,6 +191,70 @@ def test_band_emulation_equals_the_plain_and_jax_votes(rng, case):
     # The band edges carried votes from both sides.
     edge_rows = torch.arange(1, plan.bands) * plan.rows
     assert float(ref[:, edge_rows - 1].abs().sum()) > 0 and float(ref[:, edge_rows].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_dropped_events_alone_vote_an_all_zero_image(rng, case):
+    """chip_smoke's check of each K1 variant on the card, here on P's
+    emulation, the plain vote and JAX's: the events every image drops (NaN
+    and infinite coordinates, floors outside 1 <= floor < size - 2, weight
+    0) vote exactly nothing, not even a NaN times zero."""
+    b, n, H, W, optin = CASES[case]
+    plan = cuda_iwe.plan_vote_fwd(b, n, H, W, SMS, optin, variant="P")
+    px, py, w = _edge_events(rng, b, n, H, W, plan)
+    with np.errstate(invalid="ignore"):
+        fx, fy = np.floor(px), np.floor(py)
+        live = (fx >= 1) & (fx < W - 2) & (fy >= 1) & (fy < H - 2) & (w != 0)
+    assert (~live & (w != 0)).sum(axis=1).min() >= 5  # dropped for their coordinates alone
+    w = np.where(live, 0.0, w).astype(np.float32)  # the in-bounds events dropped by weight
+    tpx, tpy, tw = (torch.tensor(a) for a in (px, py, w))
+    assert not emulate_bands(tpx, tpy, tw, plan, H, W).any()
+    assert not scatter.bilinear_accumulate(tpx, tpy, tw, H, W).any()
+    if H * W <= 4096:
+        for i in range(b):
+            jimg = jscatter.bilinear_accumulate(jnp.asarray(px[i]), jnp.asarray(py[i]),
+                                                jnp.asarray(w[i]), height=H, width=W)
+            assert not np.asarray(jimg).any()
+
+
+@pytest.mark.parametrize("tag", ["packet", "sweep", "crop", "split"])
+def test_launch_buckets_name_the_phase3_shape_a_path_launch_stands_for(tag):
+    """chip_smoke counts the system path's K1 launches by the phase-3 shape
+    each stands for: the camera image (180x240) one image per packet or 9
+    rungs per sweep, the ijrr panorama two images per old/new split, any
+    other image one back-end crop."""
+    _, b, _, H, W, *_ = next(s for s in chip_smoke.SHAPES if s[0] == tag)
+    assert chip_smoke._fwd_bucket(b, H, W, (180, 240), (512, 1024)) == tag
+    assert chip_smoke._fwd_bucket(3, H, W, (180, 240), (512, 1024)) not in EXPECTED
+
+
+def test_launch_spy_counts_each_k1_launch_by_shape_and_variant_and_is_removed(monkeypatch):
+    """The spy reads shapes and hands every call to the wrapper it wraps (a
+    stub here, so nothing reaches the card); a call of no events launches
+    nothing and is not counted; removing it puts the wrapper back."""
+    calls = []
+
+    def stub(px, py, w, height, width, b=None, **kw):
+        calls.append((height, width, b))
+        return "image"
+
+    monkeypatch.setattr(cuda_iwe, "vote_fwd", stub)
+    monkeypatch.setattr(cuda_iwe, "device_attrs", lambda device: (SMS, OPTIN))
+    tally = {}
+    remove = chip_smoke._spy_fwd_shapes(tally, (180, 240), (512, 1024))
+    rows = lambda r, n=10: torch.zeros(r, n)  # noqa: E731
+    assert cuda_iwe.vote_fwd(rows(9), rows(9), rows(1), 180, 240) == "image"
+    cuda_iwe.vote_fwd(rows(1), rows(1), rows(1), 180, 240)
+    cuda_iwe.vote_fwd(rows(1), rows(1), rows(2), 512, 1024)
+    cuda_iwe.vote_fwd(rows(224), rows(224), rows(224), 180, 240, 2016)
+    cuda_iwe.vote_fwd(rows(1, 0), rows(1, 0), rows(1, 0), 180, 240)
+    remove()
+    assert cuda_iwe.vote_fwd is stub and len(calls) == 5
+    assert tally == {
+        "sweep": {"launches": 1, "events": 90, "variants": {"G": 1}},
+        "packet": {"launches": 1, "events": 10, "variants": {"G": 1}},
+        "split": {"launches": 1, "events": 20, "variants": {"G": 1}},
+        "camera b=2016": {"launches": 1, "events": 20_160, "variants": {"P": 1}}}
 
 
 def test_compact_rows_reads_trailing_broadcasts_in_place():
