@@ -5,7 +5,9 @@
 
 Phases, in order; any failure exits non-zero:
 1. card: prints ``nvidia-smi --query-gpu=name,power.limit`` as it reports them;
-2. build: compiles the vote kernels from csrc/iwe.cu with nvcc, prints the seconds;
+2. build: compiles csrc/iwe.cu (the vote kernels) and csrc/loop.cu (the loop
+   predicate and graph assembly), one nvcc each, started together; prints
+   the seconds;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main path's shapes (front-end rung sweep, back-end window on a crop,
    old/new split on the full panorama, the batched tracker's lanes) and at
@@ -27,14 +29,26 @@ Phases, in order; any failure exits non-zero:
    the launch floor (an empty kernel's device time), then the wrapper time
    of each variant and the plain time and, for K2, the bilinear gather of
    F.grid_sample as a yardstick;
+   Then the loop predicate: a WHILE node with a nested IF node run as one
+   graph against the same program with its gates read on the host (equal
+   results and predicate executions), with the time per iteration of each;
 4. system: CMaxSLAM on the stock ijrr preset, driven through push_events on a
    2.0 s synthetic 240x180 stream at 390k ev/s (make_stream), must keep its
    state on the card, gather its packets from the device event ring (the
    stock front-end schedule), each torch.equal to the packet gathered from
    the host store, run at least 15 BA windows through both kernels (K1's
    launches counted and printed by shape bucket: packet, sweep, crop,
-   split, with the variant the planner took) and track the ground truth to
-   < 0.3 deg RMS; then the same stream on the
+   split, with the variant the planner took, counted per graph execution)
+   and track the ground truth to < 0.3 deg RMS. Every packet launch, stride
+   and window solve must run as a captured CUDA graph (ops/device_loop.py)
+   with one host read per front-end launch, fewer than one per packet on
+   strides and at most two per window; prints graph launches per path, the
+   loop predicate's executions, captures and their seconds, host reads per
+   packet and per window and the peak device memory. A captured evaluation
+   of the packet and of the crop objective must match the same objective on
+   the plain vote on the card, and the graphed packet solves minimize_fr_cg
+   (the host loop) solving the same packets from the same warm starts
+   (median |omega difference| < 0.01 rad/s); then the same stream on the
    per-packet schedule from the host store (frontend.device_store=False,
    batch_sweeps=0), with the same checks, the same packet grid and a median
    omega difference under 0.01 rad/s (the schedules give bit-equal solver
@@ -70,6 +84,9 @@ Phases, in order; any failure exits non-zero:
    2048x4096 (the blur's shift-and-add path), value within rtol 2e-5 and
    gradient within rtol 2e-3, atol 2e-6; then the 2-segment replay
    (overlap 0.4 s) on the stock preset, stitched RMS < 0.5 deg.
+
+With ``--parent DIR`` (an unpacked checkout of another commit) it then
+times phase 4 on both trees in turns, each turn a process of its own.
 
 Before the last line it prints one JSON object with every kernel's route,
 source, launches on each path (the two system runs of phase 4, the small
@@ -602,11 +619,24 @@ def make_stream(duration: float = 2.0):
     return ev, omega, calib
 
 
-def _reset_launches():
+def _launches() -> dict:
+    """K1/K2 launches by kernel and variant since _reset_launches, and as
+    "graph_<key>" the part of them that ran inside CUDA graphs."""
     from cmax_slam_tpu_torch.ops import cuda_iwe
 
+    return dict(cuda_iwe.LAUNCHES) | {f"graph_{k}": v for k, v in cuda_iwe.GRAPH_LAUNCHES.items()}
+
+
+def _reset_launches():
+    """Every kernel count to 0: K1/K2 by variant, the loop predicate, the
+    graph launches and captures of the device programs."""
+    from cmax_slam_tpu_torch.ops import cuda_iwe, device_loop
+
     for k in cuda_iwe.LAUNCHES:
-        cuda_iwe.LAUNCHES[k] = 0
+        cuda_iwe.LAUNCHES[k] = cuda_iwe.GRAPH_LAUNCHES[k] = 0
+    device_loop.LAUNCHES["pred"] = 0
+    device_loop.RUNS.clear()
+    device_loop.CAPTURES.update(graphs=0, segments=0, s=0.0)
 
 
 def _rms_unnormalized(q_ref, q_est) -> float:
@@ -635,32 +665,45 @@ def _rms_vs_truth(traj, omega, samples: int = 80):
 
 
 def _spy_packets(fe) -> dict:
-    """Hold every packet the front-end ``fe`` gathers from its device ring
+    """Hold every packet the front-end ``fe`` solves from its device ring
     against the packet gathered from the host store for the same span
-    (torch.equal, dtypes too), and count both gathers. Returns the live
-    tally: ring, host, unequal, and s, the seconds the checks took (kept
-    out of the walls)."""
+    (torch.equal, dtypes too): the ring gather run alone for each live lane
+    of a launch from the ring, and the packet the launch's program itself
+    gathered last (its static buffers) against its host packet. Counts the
+    lanes solved from each source. Returns the live tally: ring, host,
+    unequal, program (packets checked in the program's buffers, launches
+    whose last lane is live), and s, the seconds the checks took (kept out
+    of the walls)."""
     import torch
 
-    tally = {"ring": 0, "host": 0, "unequal": 0, "s": 0.0}
-    ring_gather, host_gather = fe._ring_packet, fe._packet
+    tally = {"ring": 0, "host": 0, "unequal": 0, "program": 0, "s": 0.0}
+    launch = fe._launch
 
-    def ring_packet(beg, n, t_ref):
-        packet = ring_gather(beg, n, t_ref)
+    def equal(a, b):
+        return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+    def spied(ests, flags):
+        live = [e for e, f in zip(ests, flags) if f > 0]
+        ring = [e for e in live if fe._from_ring(e.span[0])]
+        launch(ests, flags)
         t0 = time.perf_counter()
-        xs, ys, ts, _ = fe.store.slice_abs(beg, beg + n)
-        host = host_gather(xs, ys, ts, t_ref)
-        tally["ring"] += 1
-        tally["unequal"] += not all(a.dtype == b.dtype and torch.equal(a, b)
-                                    for a, b in zip(packet, host))
+        tally["ring"] += len(ring)
+        tally["host"] += len(live) - len(ring)
+        for e in ring:
+            beg, end = e.span
+            t_ref = float(np.float32(e.t - fe._t0))
+            xs, ys, ts, _ = fe.store.slice_abs(beg, end)
+            host = fe._packet(xs, ys, ts, t_ref)
+            tally["unequal"] += not equal(fe._ring_packet(beg, end - beg, t_ref), host)
+        if flags[-1] > 0:  # the program's buffers hold the last lane's packet
+            beg, end = live[-1].span
+            xs, ys, ts, _ = fe.store.slice_abs(beg, end)
+            host = fe._packet(xs, ys, ts, float(np.float32(live[-1].t - fe._t0)))
+            tally["unequal"] += not equal(fe._packets.packet, host)
+            tally["program"] += 1
         tally["s"] += time.perf_counter() - t0
-        return packet
 
-    def packet(xs, ys, ts, t_ref):
-        tally["host"] += 1
-        return host_gather(xs, ys, ts, t_ref)
-
-    fe._ring_packet, fe._packet = ring_packet, packet
+    fe._launch = spied
     return tally
 
 
@@ -690,31 +733,25 @@ def _fwd_bucket(b: int, H: int, W: int, cam_hw, pano_hw) -> str:
 
 
 def _spy_fwd_shapes(tally: dict, cam_hw, pano_hw):
-    """Count each K1 launch into ``tally`` by its shape bucket: launches,
-    events and launches per planned variant. Returns the function that
-    removes the spy. The spy only reads shapes; the launches are the
-    wrapper's own."""
+    """Count each executed K1 launch into ``tally`` by its shape bucket:
+    launches, events and launches per planned variant, from the wrapper's
+    own counts by shape (cuda_iwe.SHAPE_LAUNCHES: a launch inside a CUDA
+    graph counts once per execution). Returns the function that fills
+    ``tally`` and stops the counting."""
     from cmax_slam_tpu_torch.ops import cuda_iwe
 
-    vote_fwd = cuda_iwe.vote_fwd
-
-    def counted(px, py, w, height, width, b=None, **kw):
-        bb = max(t.shape[0] for t in (px, py, w)) if b is None else b
-        if bb * px.shape[1] * height * width == 0:  # no launch
-            return vote_fwd(px, py, w, height, width, b, **kw)
-        plan = cuda_iwe.plan_vote_fwd(bb, px.shape[1], height, width,
-                                      *cuda_iwe.device_attrs(px.device), variant=kw.get("variant"))
-        s = tally.setdefault(_fwd_bucket(bb, height, width, cam_hw, pano_hw),
-                             {"launches": 0, "events": 0, "variants": {}})
-        s["launches"] += 1
-        s["events"] += bb * px.shape[1]
-        s["variants"][plan.variant] = s["variants"].get(plan.variant, 0) + 1
-        return vote_fwd(px, py, w, height, width, b, **kw)
-
-    cuda_iwe.vote_fwd = counted
+    cuda_iwe.SHAPE_LAUNCHES = {}
 
     def restore():
-        cuda_iwe.vote_fwd = vote_fwd
+        seen, cuda_iwe.SHAPE_LAUNCHES = cuda_iwe.SHAPE_LAUNCHES, None
+        for (kernel, variant, b, n, height, width), count in seen.items():
+            if kernel != "fwd":
+                continue
+            s = tally.setdefault(_fwd_bucket(b, height, width, cam_hw, pano_hw),
+                                 {"launches": 0, "events": 0, "variants": {}})
+            s["launches"] += count
+            s["events"] += count * b * n
+            s["variants"][variant] = s["variants"].get(variant, 0) + count
 
     return restore
 
@@ -747,6 +784,9 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
                if shapes is not None else (lambda: None))
 
     _reset_launches()
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         _push(slam, ev, 0, n)
@@ -756,7 +796,8 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
     finally:
         restore()
     wall = time.perf_counter() - t0 - tally["s"]
-    launches = dict(cuda_iwe.LAUNCHES)
+    launches = _launches()
+    graphs = _graph_stats(slam, device)
 
     be = slam.backend
     wins = slam.window_results()
@@ -772,7 +813,7 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
          f"from the ring {tally['ring']} (unequal to the host packet {tally['unequal']}), "
          f"from the host store {tally['host']}; timers_s "
          f"{json.dumps(timers)}; counters {json.dumps(dict(counters))}; launches {launches}; "
-         f"crop shapes {sorted(be._crop_shapes)}")
+         f"crop shapes {sorted(be._crop_shapes)}; graphs {json.dumps(graphs)}")
     checks = {
         "state on the device": all(t.device.type == device for t in (
             be.IG, be.update_times, be.lut_dev, slam.frontend.lut)),
@@ -782,6 +823,7 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
         "RMS < 0.3 deg": rms < 0.3,
         "spline order": be.traj.order == (4 if overrides.get(CUBIC_KEY) == 3 else 2),
     }
+    checks |= _graph_checks(graphs, cfg, device)
     if cfg.frontend.device_store:  # the stock schedule gathers from the ring
         checks["packets gathered from the ring"] = (
             tally["ring"] == counters["frontend.ring_packets"] > 0)
@@ -789,6 +831,52 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
     else:
         checks["no ring packets"] = tally["ring"] == 0 and "frontend.ring_packets" not in counters
     return launches, checks, log, wall, slam
+
+
+def _graph_stats(slam, device: str) -> dict:
+    """What the run's device programs did: graph launches per program, loop
+    predicate executions, captures and their seconds, host reads per packet
+    and per window, peak device memory. The counts were reset with the
+    launches (_reset_launches)."""
+    import torch
+    from cmax_slam_tpu_torch.ops import device_loop
+
+    c = slam.metrics.counters
+    packets = sum(1 for e in slam.frontend.estimates if e.iters > 0)
+    windows = sum(w.ran_ba for w in slam.window_results())
+    return {
+        "runs": dict(device_loop.RUNS), "pred": device_loop.LAUNCHES["pred"],
+        "captures": dict(device_loop.CAPTURES),
+        "frontend_launches": c.get("frontend.launches", 0),
+        "frontend_host_reads": c.get("frontend.host_reads", 0),
+        "stride_launches": c.get("frontend.stride_launches", 0),
+        "host_reads_per_packet": c.get("frontend.host_reads", 0) / max(packets, 1),
+        "host_reads_per_window": c.get("backend.host_reads", 0) / max(windows, 1),
+        "solved_packets": packets, "ba_windows": windows,
+        "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else 0.0),
+    }
+
+
+def _graph_checks(graphs: dict, cfg, device: str) -> dict:
+    """Every solve of the run went through captured graphs (on the card),
+    with one host read per front-end launch and at most two per window (the
+    packed readback, and a full-panorama re-solve's on an escape); strides
+    read less than once per packet."""
+    runs = graphs["runs"]
+    out = {
+        "one host read per front-end launch": (
+            graphs["frontend_host_reads"] == graphs["frontend_launches"] > 0),
+        "<= 2 host reads per window": graphs["host_reads_per_window"] <= 2,
+    }
+    if device == "cuda":
+        out["front-end solves ran as graphs"] = (
+            runs.get("frontend", 0) == graphs["frontend_launches"] > 0)
+        out["window solves ran as graphs"] = (
+            runs.get("backend.crop", 0) + runs.get("backend.full", 0) > 0)
+    if cfg.frontend.batch_sweeps > 0:
+        out["strides: < 1 host read per packet"] = (
+            graphs["stride_launches"] > 0 and graphs["host_reads_per_packet"] < 1)
+    return out
 
 
 def run_ring_wrap(device: str = "cuda", duration: float = 0.6, capacity: int = 1 << 15):
@@ -822,7 +910,7 @@ def run_ring_wrap(device: str = "cuda", duration: float = 0.6, capacity: int = 1
     tallies.append(_spy_packets(resumed.frontend))
     _push(resumed, ev, resumed.raw_count, n, chunk)
     wall = time.perf_counter() - t0
-    launches = dict(cuda_iwe.LAUNCHES)
+    launches = _launches()
     tally = {k: sum(t[k] for t in tallies) for k in tallies[0]}
     log = np.concatenate([first.ang_vel_log, resumed.ang_vel_log])
     err = np.linalg.norm(log[:, 1:] - omega, axis=1)
@@ -966,7 +1054,7 @@ def run_resume(device: str = "cuda", duration: float = 1.0):
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(cuda_iwe.LAUNCHES)
+    launches = _launches()
 
     def gap(a, c):
         ta, tc = a.backend.traj, c.backend.traj
@@ -1055,7 +1143,7 @@ def run_cli(device: str = "cuda", duration: float = 2.0):
             rc = cli.main(argv("full", "--refine-passes", "1", "--save-iwe-every", "50",
                                "--save-maps-every", "6"))
             walls["full"] = time.perf_counter() - t0
-            launches = dict(cuda_iwe.LAUNCHES)
+            launches = _launches()
         finally:
             Frontend.render_iwe_pair = render
         cut = n // 2
@@ -1160,7 +1248,7 @@ def run_batched(device: str = "cuda", seq_log=None, duration: float = 2.0):
         if device == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(cuda_iwe.LAUNCHES)
+        launches = _launches()
     finally:
         cuda_iwe.vote_fwd, batched._run_round = vote_fwd, run_round
     n = len(times)
@@ -1240,7 +1328,7 @@ def run_window_shard(device: str = "cuda", devices=("cuda:0", "cuda:0"),
             torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) / reps * 1e3
 
-    checks, launches = {}, dict.fromkeys(cuda_iwe.LAUNCHES, 0)
+    checks, launches = {}, dict.fromkeys(_launches(), 0)
     for hw in panos:
         win = make_window(ev, omega, calib, hw, device)
         pano = EquirectCamera(width=hw[1], height=hw[0])
@@ -1252,7 +1340,7 @@ def run_window_shard(device: str = "cuda", devices=("cuda:0", "cuda:0"),
         shards = shard_window_events(win, list(devices))
         _, vg_sh = make_sharded_pano_objective(list(devices), shards, pano, 2, 1.0, 0)
         (v_sh, g_sh), ms_sh = timed(vg_sh, x)
-        for k, v in cuda_iwe.LAUNCHES.items():
+        for k, v in _launches().items():
             launches[k] += v
         (v_ref, g_ref), ms_ref = timed(vg_ref, x)
         v_sh, v_ref, g_sh, g_ref = (float(v_sh), float(v_ref), g_sh.cpu().numpy(),
@@ -1291,7 +1379,7 @@ def run_replay(devices=("cuda:0", "cuda:0"), duration: float = 2.0):
     if any(torch.device(d).type == "cuda" for d in devices):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(cuda_iwe.LAUNCHES)
+    launches = _launches()
     q_gt = np.stack([spline._np_quat_exp(omega * t) for t in times])
     rms, errs = rotation_rms_deg(times, q_gt, quats, "global")
     wins = [len(s.slam.window_results()) for s in segs]
@@ -1306,10 +1394,192 @@ def run_replay(devices=("cuda:0", "cuda:0"), duration: float = 2.0):
     return launches, checks
 
 
+def check_loop_pred() -> dict:
+    """The loop predicate (csrc/loop.cu) against its plain version, the host
+    gate: a program counting a register down under a WHILE node, with an IF
+    node on every third value, run as one graph on the card and eagerly with
+    its gates read on the host; the same counts and the same executions
+    (max_abs_err 0). Times per iteration: the graph (predicate, conditional
+    node and a one-kernel body) against the host gate (the same body
+    launched from Python and one flag read), for 1000 iterations."""
+    import torch
+    from cmax_slam_tpu_torch.ops import device_loop
+
+    dev = torch.device("cuda")
+    n_it = 1000
+    start = torch.tensor([float(n_it)], device=dev)
+    n, hits = torch.zeros(1, device=dev), torch.zeros(1, device=dev)
+    go, third = device_loop.flag(dev), device_loop.flag(dev)
+
+    def init():
+        n.copy_(start)
+        hits.zero_()
+        device_loop.set_flag(go, n > 0)
+
+    def step():
+        n.sub_(1.0)
+        device_loop.set_flag(third, torch.remainder(n, 3.0) == 0)
+        device_loop.set_flag(go, n > 0)
+
+    def build(b):
+        b.seg(init)
+
+        def body():
+            b.seg(step)
+            b.when(third, lambda: b.seg(lambda: hits.add_(1.0)))
+
+        b.repeat(go, body)
+        b.seg(lambda: prog.out.copy_(torch.cat([n, hits])))
+
+    prog = device_loop.Program(build, 2, dev, name="loop_check")
+    before = device_loop.LAUNCHES["pred"]
+    got = prog.run()
+    preds = device_loop.LAUNCHES["pred"] - before
+    prog.build_fn(device_loop.Eager())
+    plain = prog.out.cpu().numpy()
+    expect_preds = (n_it + 1) + n_it  # the WHILE's n_it + 1 tests, the IF's n_it
+    err = float(np.abs(got - plain).max())
+    ms = _time_ms(prog.run, reps=5) / n_it
+    plain_ms = _time_ms(lambda: prog.build_fn(device_loop.Eager()), reps=2) / n_it
+    _log(f"loop predicate: {n_it} iterations, graph {got.tolist()} host gate {plain.tolist()}, "
+         f"predicate executions {preds} (expected {expect_preds}); per iteration graph "
+         f"{ms * 1e3:.3f} us, host gate {plain_ms * 1e3:.3f} us")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 8 / HBM_BYTES_PER_S * 1e3, "ok": err == 0 and preds == expect_preds,
+            "executions": preds}
+
+
+def check_captured_objectives(slam, ev) -> dict:
+    """A captured evaluation of the packet objective and of the back-end
+    crop objective (value and gradient, K1 and K2 inside the graph) against
+    the same objective on the plain vote on the card, at phase 4's shapes.
+    K1 sums with atomics in a run-dependent order: f within rtol 1e-5, g
+    within rtol 2e-3, atol 2e-6 of its scale."""
+    import torch
+    from cmax_slam_tpu_torch.ops import device_loop, scatter, warp_local, warp_pano
+
+    fe, be = slam.frontend, slam.backend
+    est = next(e for e in fe.estimates[5:] if e.iters > 0)
+    beg, end = est.span
+    packet = fe._packet(ev.xs[beg:end], ev.ys[beg:end], ev.ts[beg:end],
+                        float(np.float32(est.t - fe._t0)))
+    cases = {"packet": (warp_local, warp_local.make_local_objective(
+        packet, fe.cam, fe.cfg.warp.blur_sigma, fe.cfg.contrast_measure),
+        torch.tensor([est.omega], dtype=torch.float32, device="cuda"))}
+    solver = next((s for key, s in be._solvers.items() if key[2] is not None), None)
+    if solver is not None:  # the last window loaded into a crop program
+        K = solver.win.knots.shape[0]
+        x = torch.full((1, 3 * K), 1e-3, device="cuda")
+        cases["crop"] = (warp_pano, warp_pano.make_crop_objective(
+            solver.win, be.pano, be.order, be.cfg.warp.blur_sigma, be.cfg.contrast_measure,
+            solver.a_crop.shape, solver.origin[0], solver.origin[1], solver.a_crop,
+            solver.mask, solver.out_s1, solver.out_s2), x)
+    out, ok = {}, True
+    for name, (mod, (_, vg), x) in cases.items():
+        D = x.shape[1]
+        buf = {}
+
+        def build(b):
+            def seg():
+                v, g = vg(x)
+                prog.out.copy_(torch.cat([v, g[0]]))
+            b.seg(seg)
+
+        prog = device_loop.Program(build, 1 + D, "cuda", name=f"objective_{name}")
+        got = prog.run()
+        vote = mod.vote
+        mod.vote = scatter.bilinear_accumulate  # the plain version, on the card
+        try:
+            v, g = vg(x)
+        finally:
+            mod.vote = vote
+        ref = torch.cat([v, g[0]]).cpu().numpy()
+        f_err = abs(got[0] - ref[0]) / abs(ref[0])
+        g_err = np.abs(got[1:] - ref[1:]).max()
+        g_tol = 2e-3 * np.abs(ref[1:]).max() + 2e-6
+        buf = {"f_rel_err": float(f_err), "g_abs_err": float(g_err), "g_tol": float(g_tol),
+               "graph_ms": _time_ms(prog.run, reps=20),
+               "eager_ms": _time_ms(lambda: vg(x), reps=20)}
+        ok &= f_err < 1e-5 and g_err < g_tol
+        out[name] = buf
+        _log(f"captured {name} objective vs plain vote: {json.dumps(buf)}")
+    return {"captured objectives match the plain vote": bool(ok)} | {"_": out}
+
+
+def compare_host_loop(slam, ev) -> dict:
+    """Phase 4's graphed packet solves against minimize_fr_cg, the host
+    loop, on the card: each packet solved again from the warm start the
+    run gave it (the estimate before it), its events gathered from the host
+    store. The median |omega difference| must stay under 0.01 rad/s (the
+    same inputs, float32 sums in another order on the device); packet 0's
+    cold start has a second optimum (compare_schedules) and is left out."""
+    import torch
+    from cmax_slam_tpu_torch.ops import optim, warp_local
+
+    fe = slam.frontend
+    o = fe.cfg.optim
+    t0 = time.perf_counter()
+    diffs = []
+    prev = np.zeros(3)
+    for k, est in enumerate(fe.estimates):
+        x0, prev = prev, est.omega
+        if est.iters == 0 or k == 0:
+            continue
+        beg, end = est.span
+        packet = fe._packet(ev.xs[beg:end], ev.ys[beg:end], ev.ts[beg:end],
+                            float(np.float32(est.t - fe._t0)))
+        f, vg = warp_local.make_local_objective(packet, fe.cam, fe.cfg.warp.blur_sigma,
+                                                fe.cfg.contrast_measure)
+        res = optim.minimize_fr_cg(
+            vg, torch.tensor(x0, dtype=torch.float32, device=fe.device), f_fn=f,
+            max_line_searches=o.max_line_searches, initial_step=o.initial_step,
+            line_search_tol=o.line_search_tol, grad_tol=o.grad_tol, fun_tol=o.fun_tol,
+            max_fevals_per_linesearch=o.max_fevals_per_linesearch,
+            stagnation_patience=o.stagnation_patience,
+            secant_refine_evals=o.secant_refine_evals, ladder=o.ladder,
+            cg_variant=o.cg_variant)
+        diffs.append(np.linalg.norm(res.x.numpy() - est.omega))
+    d = np.asarray(diffs)
+    _log(f"graphed solves vs minimize_fr_cg on the card over {len(d)} packets: |omega "
+         f"difference| median {np.median(d):.3e} max {d.max():.3e} rad/s, "
+         f"{int((d < 1e-6).sum())} within 1e-6; host loop {time.perf_counter() - t0:.1f} s")
+    return {"graphed vs host loop: median < 0.01 rad/s": bool(np.median(d) < 0.01)}
+
+
 def _require(phase: str, checks: dict) -> None:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"{phase} checks failed: {failed}")
+
+
+_WALL_PROBE = """
+import json, sys, time
+sys.path.insert(0, ".")
+import chip_smoke
+walls = [chip_smoke.run_system(label="turn")[3] for _ in range(2)]
+print("WALLS " + json.dumps(walls))
+"""
+
+
+def walls_in_turns(parent: str, card: str) -> dict:
+    """Phase 4's wall on this tree and on ``parent`` (an unpacked checkout
+    of another commit), in turns: parent, this, this, parent, each turn a
+    process of its own that runs phase 4 twice (the first run pays the
+    captures and the library set-up, the second is warm). Returns
+    {tree: [[first, warm], ...]}."""
+    out = {"parent": [], "change": []}
+    for name in ("parent", "change", "change", "parent"):
+        cwd = parent if name == "parent" else REPO
+        proc = subprocess.run([sys.executable, "-c", _WALL_PROBE], cwd=cwd,
+                              capture_output=True, text=True, timeout=900)
+        line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("WALLS ")), None)
+        if proc.returncode != 0 or line is None:
+            raise RuntimeError(f"phase 4 in {cwd} failed:\n{proc.stderr[-3000:]}")
+        out[name].append(json.loads(line[6:]))
+        _log(f"turns: {name} phase 4 walls (first, warm) {out[name][-1]} s")
+    _log(f"phase 4 wall in turns on {card}: parent {out['parent']}, this tree "
+         f"{out['change']} (s, first run then warm run per process)")
+    return out
 
 
 def main() -> int:
@@ -1328,29 +1598,42 @@ def main() -> int:
     # PyTorch's defaults for matmuls, stated here so no environment changes them.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from cmax_slam_tpu_torch.ops import cuda_iwe
+    from cmax_slam_tpu_torch.ops import cuda_iwe, device_loop, nvcc
 
     card = card_line()
     _log(f"card: {card}  (torch {torch.__version__}, CUDA {torch.version.cuda})")
     t0 = time.perf_counter()
+    nvcc.compile_all([cuda_iwe.build_job(), device_loop.build_job()])  # one nvcc each, at once
     cuda_iwe.build()
-    _log(f"build: {time.perf_counter() - t0:.2f} s ({cuda_iwe.library_path().name})")
+    device_loop.build()
+    _log(f"build: {time.perf_counter() - t0:.2f} s ({cuda_iwe.library_path().name}, "
+         f"{device_loop.build_job()[2].name})")
     kernels = check_kernels(np.random.default_rng(0))
+    pred = check_loop_pred()
+    _require("loop predicate", {"graph and host gate agree": pred["ok"]})
     fwd_buckets = {}
     launches, checks, seq_log, wall, slam = run_system(shapes=fwd_buckets)
+    graphs = {"system": _graph_stats(slam, "cuda")}
     _log("system: K1 launches by shape bucket "
          + json.dumps(dict(sorted(fwd_buckets.items(), key=lambda kv: -kv[1]["launches"]))))
     checks["K1 launches counted by shape"] = (
         sum(s["launches"] for s in fwd_buckets.values()) == launches["fwd"])
     _require("system", checks)
+    ev = make_stream(2.0)[0]
+    objectives = check_captured_objectives(slam, ev)
+    _require("captured objectives", {k: v for k, v in objectives.items() if k != "_"})
+    _require("host loop", compare_host_loop(slam, ev))
     host_launches, checks, _, host_wall, host_slam = run_system(overrides=HOST_SCHEDULE,
                                                                 label="system_host")
+    graphs["system_host"] = _graph_stats(host_slam, "cuda")
     _require("system_host", checks)
     _require("schedules", compare_schedules(slam, wall, host_slam, host_wall))
     del slam, host_slam
     ring_launches, checks = run_ring_wrap()
     _require("ring_wrap", checks)
-    cubic_launches, checks, _, _, _ = run_system(overrides=CUBIC, label="cubic")
+    cubic_launches, checks, _, _, cubic_slam = run_system(overrides=CUBIC, label="cubic")
+    graphs["cubic"] = _graph_stats(cubic_slam, "cuda")
+    del cubic_slam
     _require("cubic", checks)
     resume_launches, checks = run_resume()
     _require("resume", checks)
@@ -1362,7 +1645,10 @@ def main() -> int:
     _require("window_shard", checks)
     replay_launches, checks = run_replay()
     _require("replay", checks)
+    if "--parent" in sys.argv:  # phase 4's wall against another commit, in turns
+        walls_in_turns(os.path.abspath(sys.argv[sys.argv.index("--parent") + 1]), card)
 
+    _log("device programs per path: " + json.dumps(graphs))
     src = "cmax_slam_tpu_torch/csrc/iwe.cu"
     replaces = {"fwd": "cmax_slam_tpu/ops/pallas_iwe.py:276 (_fwd_impl, pallas_call at :289)",
                 "bwd": "cmax_slam_tpu/ops/pallas_iwe.py:307 (_vjp_bwd, pallas_call at :350; "
@@ -1377,6 +1663,7 @@ def main() -> int:
         return {p: counts[key] for p, counts in paths.items()}
 
     idle = [key for key in cuda_iwe.LAUNCHES if not any(by_path(key).values())]
+    idle += [] if graphs["system"]["pred"] else ["loop_pred"]
     if idle:
         raise AssertionError(f"kernels or variants no path launched: {idle}")
 
@@ -1385,6 +1672,7 @@ def main() -> int:
         rep = v["by_shape"][REPORTED[k]]
         row = {"name": names[k], "route": "cuda", "source": src, "replaces": replaces[k],
                "launches": launches[k], "launches_by_path": by_path(k),
+               "launches_in_graphs_by_path": by_path(f"graph_{k}"),
                "max_abs_err": v["max_abs_err"], "ms": v["ms"], "device_ms": v["device_ms"],
                "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
                "library_ms": None,
@@ -1420,6 +1708,16 @@ def main() -> int:
                                    if var in s["modes"]["paths"]["variants"]}}
                 for var in cuda_iwe.BWD_VARIANTS}
         rows.append(row)
+    rows.append({
+        "name": "loop_pred", "route": "cuda", "source": "cmax_slam_tpu_torch/csrc/loop.cu",
+        "replaces": "cmax_slam_tpu/ops/optim.py:573 (lax.while_loop's cond; the lax.cond of "
+                    "cmax_slam_tpu/frontend.py:288; no Pallas kernel)",
+        "launches": graphs["system"]["pred"],
+        "launches_by_path": {p: g["pred"] for p, g in graphs.items()},
+        "max_abs_err": pred["max_abs_err"], "ms": pred["ms"], "plain_ms": pred["plain_ms"],
+        "bound_ms": pred["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "executions_checked": pred["executions"],
+        "graph_runs_by_path": {p: g["runs"] for p, g in graphs.items()}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,7 +21,14 @@ host-side state machine over the shared EventStore. Window protocol
   map grown from dilated FOV footprints every 0.05 s (:303-337).
 
 The maps (``IG``, ``update_times``) stay resident on the back-end's device.
-Each window completes synchronously within the step that starts it.
+Each window's solve is one device program (ops/device_loop.py, the JAX
+package's _build_crop_solver and _build_window_solver): the per-window
+constants are computed on the device and copied into the program's static
+buffers, then one graph launch runs the CG solve with its bounded restarts,
+the old/new split, the optimum's bounding box and the map epilogue, and the
+host reads one packed array (knots, f0, fun, iters, alpha, bbox) per window
+(``backend.host_reads``). On the CPU the same program runs eagerly. Each
+window completes synchronously within the step that starts it.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from . import spline
 from .calib import EquirectCamera
 from .config import IMAGE_GRADIENT_MAGNITUDE_CONTRAST, BackendConfig
 from .io.events import EventStore
-from .ops import optim, warp_pano
+from .ops import device_loop, optim, warp_pano
 from .ops.blur import opencv_ksize
 from .ops.scatter import bilinear_accumulate_two
 from .ops.warp_pano import PanoWindow
@@ -74,7 +81,7 @@ class Backend:
         cfg: BackendConfig,
         store: EventStore,
         *,
-        device,
+        device=None,
         frontend_sample_rate: int = 1,
         metrics: Optional[Metrics] = None,
     ):
@@ -136,6 +143,7 @@ class Backend:
         self._prior_lam = 0.0  # raised only during refine sweeps
         self._bootstrap_pending = cfg.bootstrap_resolve_window
         self.bootstrap_results: List[WindowResult] = []
+        self._solvers: dict = {}  # program key -> _WindowSolver
 
     # ------------------------------------------------------------------
     # Front-end interface (pushAngVel, pose_graph_optimizer.cpp:73-110)
@@ -185,6 +193,24 @@ class Backend:
         res = self._process_time_window(ev, av)
         self._slide_window()
         return res
+
+    def run(self) -> List[WindowResult]:
+        """Step while a window is ready; returns the completed windows (the
+        JAX package's Backend.run; nothing is left in flight here)."""
+        out = []
+        while self.ready():
+            out.append(self.step())
+        return out
+
+    def flush(self) -> Optional[WindowResult]:
+        """Complete in-flight work: every window completes inside step(), so
+        there is none; kept so that callers written for the JAX back-end,
+        which completes a window one step late, run unchanged."""
+        return None
+
+    def close(self) -> Optional[WindowResult]:
+        """Retire the instance: flush (the back-end holds no threads)."""
+        return self.flush()
 
     # ------------------------------------------------------------------
     def _get_event_subset(self, t_beg: float, t_end: float):
@@ -566,33 +592,27 @@ class Backend:
             alpha=torch.zeros((), dtype=torch.float32, device=dev),
         )
 
-    def _minimize(self, f, vg, K: int) -> optim.CGResult:
-        """The BA solve plus its bounded re-seeded restarts. Every solve
-        stops at the max_ba_correction_rad trust radius when one is set."""
-        o = self.cfg.optim
-        lam = self._prior_lam
-        if lam:  # quadratic prior toward the incoming knots (refine sweeps)
-            f0, vg0 = f, vg
+    def _solver(self, win: PanoWindow, fov_rel, crop_hw) -> "_WindowSolver":
+        """The program for this window's shapes: events, knots, crop (None:
+        the full panorama) and the prior weight of refine sweeps."""
+        key = (win.weights.shape[0], win.knots.shape[0], crop_hw, len(fov_rel),
+               self._prior_lam)
+        solver = self._solvers.get(key)
+        if solver is None:
+            solver = _WindowSolver(self, win, len(fov_rel), crop_hw)
+            self._solvers[key] = solver
+        return solver
 
-            def f(x):
-                return f0(x) + 0.5 * lam * torch.sum(x * x, dim=-1)
-
-            def vg(x):
-                v, g = vg0(x)
-                return v + 0.5 * lam * torch.sum(x * x), g + lam * x
-
-        kw = dict(max_line_searches=o.max_line_searches, initial_step=o.initial_step,
-                  line_search_tol=o.line_search_tol, grad_tol=o.grad_tol,
-                  fun_tol=o.fun_tol, max_fevals_per_linesearch=o.max_fevals_per_linesearch,
-                  stagnation_patience=o.stagnation_patience,
-                  secant_refine_evals=o.secant_refine_evals, ladder=o.ladder,
-                  cg_variant=o.cg_variant, trust_radius=self.cfg.max_ba_correction_rad)
-        res = optim.minimize_fr_cg(vg, torch.zeros(3 * K, device=self.device), f_fn=f, **kw)
-        for _ in range(self._ba_restarts):
-            res2 = optim.minimize_fr_cg(vg, res.x.to(self.device), f_fn=f, **kw)
-            res = optim.CGResult(x=res2.x, fun=res2.fun, iters=res.iters + res2.iters,
-                                 status=res2.status, f0=res.f0)
-        return res
+    def _run_solver(self, win: PanoWindow, fov_rel, crop_hw=None, consts=None):
+        """Load a window into its program and run it. Returns (knots_new,
+        stats, IG, update times): stats = [f0, fun, iters, alpha, bbox]."""
+        solver = self._solver(win, fov_rel, crop_hw)
+        with torch.no_grad():
+            packed = solver.solve(win, fov_rel, consts)
+        self.metrics.count("backend.host_reads")
+        K = win.knots.shape[0]
+        return (packed[:4 * K].reshape(K, 4), packed[4 * K:].tolist(), solver.ig_out,
+                solver.upd_out)
 
     def _map_epilogue(self, il_old, knots_new, fov_rel, win: PanoWindow):
         """IG absorption with per-pixel saturation (updateIG,
@@ -600,8 +620,7 @@ class Backend:
         dt_check grid (setUpdateTimesIG, :325-337)."""
         ig_new = warp_pano.accumulate_global_map(self.IG, il_old, self.update_times,
                                                  self.cfg.pano_map.max_update_times)
-        q_fov = spline.evaluate(knots_new, torch.as_tensor(fov_rel, device=self.device),
-                                win.t0, win.dt_knots, self.order)
+        q_fov = spline.evaluate(knots_new, fov_rel, win.t0, win.dt_knots, self.order)
         fovm = warp_pano.fov_mask(q_fov, self.lut_dev, self.pano, radius=3)
         return ig_new, self.update_times + fovm
 
@@ -609,48 +628,24 @@ class Backend:
     def _solve_full(self, win: PanoWindow, fov_rel):
         """Full-panorama window solve. Returns (knots_new, stats, IG, upd)."""
         K = win.knots.shape[0]
-        cfg = self.cfg
-        sigma = cfg.warp.blur_sigma
         zeros = torch.zeros((K, 3), device=self.device)
-        il0, _ = warp_pano.pano_objective_image(zeros, win, self.pano, self.order, sigma)
-        win = win._replace(alpha=warp_pano.compute_alpha(il0, win.ig_prime))
-        f, vg = warp_pano.make_pano_objective(win, self.pano, self.order, sigma,
-                                              cfg.contrast_measure)
-        res = self._minimize(f, vg, K)
-        drotv = res.x.to(self.device).reshape(K, 3)
-        knots_new = spline.apply_masked_increments(win.knots, drotv, win.free_mask)
-        il_old, _ = warp_pano.pano_il_split(drotv, win, self.pano, self.order)
-        ig_new, upd_new = self._map_epilogue(il_old, knots_new, fov_rel, win)
-        stats = [res.f0, res.fun, res.iters, float(win.alpha)]
-        return knots_new, stats, ig_new, upd_new
+        il0, _ = warp_pano.pano_objective_image(zeros, win, self.pano, self.order,
+                                                self.cfg.warp.blur_sigma)
+        alpha = warp_pano.compute_alpha(il0, win.ig_prime)
+        return self._run_solver(win, fov_rel, consts=dict(alpha=alpha))
 
     @torch.no_grad()
     def _solve_crop(self, win: PanoWindow, fov_rel, plan):
         """FOV-crop window solve. Returns (knots_new, stats + bbox, IG, upd)."""
         Hc, Wc, ints, _ = plan
-        K = win.knots.shape[0]
         cfg = self.cfg
-        sigma = cfg.warp.blur_sigma
-        win, x0f, y0f, a_crop, mask, out_s1, out_s2 = warp_pano.crop_window_constants(
-            win, self.pano, self.order, sigma, cfg.contrast_measure, (Hc, Wc), ints)
-        f, vg = warp_pano.make_crop_objective(
-            win, self.pano, self.order, sigma, cfg.contrast_measure, (Hc, Wc),
-            x0f, y0f, a_crop, mask, out_s1, out_s2)
-        res = self._minimize(f, vg, K)
-        drotv = res.x.to(self.device).reshape(K, 3)
-        knots_new = spline.apply_masked_increments(win.knots, drotv, win.free_mask)
-        # Old/new split at the optimum on the crop, placed into the full pano,
-        # and the optimum's bounding box for the escape check.
-        px, py = warp_pano.warp_to_pano(drotv, win, self.pano, self.order)
-        bbox = warp_pano.warp_bbox(drotv, win, self.pano, self.order)
-        ilo_c, _ = bilinear_accumulate_two(px - x0f, py - y0f, win.weights, ~win.is_old,
-                                           Hc, Wc)
-        il_old = torch.zeros_like(self.IG)
-        y0, x0 = int(ints[0]), int(ints[1])
-        il_old[y0:y0 + Hc, x0:x0 + Wc] = ilo_c
-        ig_new, upd_new = self._map_epilogue(il_old, knots_new, fov_rel, win)
-        stats = [res.f0, res.fun, res.iters, float(win.alpha), *bbox.cpu().tolist()]
-        return knots_new, stats, ig_new, upd_new
+        ints_t = torch.as_tensor(ints, device=self.device)
+        win, _, _, a_crop, mask, out_s1, out_s2 = warp_pano.crop_window_constants(
+            win, self.pano, self.order, cfg.warp.blur_sigma, cfg.contrast_measure, (Hc, Wc),
+            ints_t)
+        consts = dict(alpha=win.alpha, crop=ints_t, a_crop=a_crop, mask=mask, out_s1=out_s1,
+                      out_s2=out_s2)
+        return self._run_solver(win, fov_rel, (Hc, Wc), consts)
 
     def _dispatch_window_solve(self, xs, ys, ts, idx_cp_traj_beg, num_fixed):
         """Marshal the window and solve it (crop first where planned).
@@ -689,7 +684,7 @@ class Backend:
             else:
                 self.metrics.count("backend.crop_windows", 1)
         idx, n_real = p["idx_cp_traj_beg"], p["n_real"]
-        q1 = knots_new.cpu().numpy().astype(np.float64)[:n_real]
+        q1 = knots_new.astype(np.float64)[:n_real]
         cap = self.cfg.max_ba_correction_rad
         if cap is not None:
             # Degenerate-landscape guard (pairs with the in-solve trust stop):
@@ -708,8 +703,9 @@ class Backend:
                 self.metrics.count("backend.ba_rejected", 1)
                 return float(stats[0]), float(stats[1]), int(stats[2]), True
         self.traj.knots[idx: idx + n_real] = q1
-        self.IG = ig_new
-        self.update_times = upd_new
+        # in place: the window programs read the maps at these addresses
+        self.IG.copy_(ig_new)
+        self.update_times.copy_(upd_new)
         return float(stats[0]), float(stats[1]), int(stats[2]), False
 
     def _fov_times_rel(self, t_knot0: float, n_real: int, dt_check: float = 0.05) -> np.ndarray:
@@ -771,9 +767,8 @@ class Backend:
             self.traj = spline.Trajectory(float(d["traj_t_beg"]),
                                           self.cfg.trajectory.dt_knots, self.order)
             self.traj.push_ctrl_poses(knots)
-        self.IG = torch.as_tensor(np.asarray(d["IG"], np.float32), device=self.device)
-        self.update_times = torch.as_tensor(np.asarray(d["update_times"], np.int32),
-                                            device=self.device)
+        self.IG.copy_(torch.as_tensor(np.asarray(d["IG"], np.float32)))
+        self.update_times.copy_(torch.as_tensor(np.asarray(d["update_times"], np.int32)))
         self.count_window = int(d["count_window"])
         self.t_win_beg = float(d["t_win_beg"])
         self.t_win_end = float(d["t_win_end"])
@@ -830,3 +825,122 @@ class Backend:
                                   else int(self._bootstrap_pending)),
             "trajectory_log": tl,
         }
+
+
+class _WindowSolver:
+    """One window's solve as one device program: the counterpart of the JAX
+    package's _build_crop_solver (``crop_hw`` set) and _build_window_solver
+    (the full panorama). Static buffers hold the window's events, knots and
+    constants; the program runs the CG solve from zero increments inside the
+    max_ba_correction_rad trust radius, its bounded restarts from the
+    optimum (config.ba_solve_restarts), then the old/new split, the
+    optimum's bounding box (crop) and the map epilogue, and packs knots and
+    stats into ``out``; the new maps stay in ``ig_out``/``upd_out``."""
+
+    def __init__(self, be: Backend, win: PanoWindow, n_fov: int, crop_hw):
+        cfg, o, dev = be.cfg, be.cfg.optim, be.device
+        N, K = win.weights.shape[0], win.knots.shape[0]
+        B = win.batch_times.shape[0]
+        H, W = be.pano.height, be.pano.width
+        sigma, measure, order = cfg.warp.blur_sigma, cfg.contrast_measure, be.order
+
+        def buf(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.win = PanoWindow(bearings=buf(3, N), batch_times=buf(B), weights=buf(N),
+                              is_old=buf(N, dtype=torch.bool), knots=buf(K, 4),
+                              free_mask=buf(K), t0=win.t0, dt_knots=win.dt_knots,
+                              ig_prime=be.IG, alpha=buf())
+        self.fov = buf(n_fov)
+        self.ig_out, self.upd_out = torch.zeros_like(be.IG), torch.zeros_like(be.update_times)
+        self.crop = None
+        if crop_hw is not None:
+            Hc, Wc = crop_hw
+            self.crop = buf(6, dtype=torch.int64)
+            self.origin = buf(2)  # the crop origin (x0, y0) as floats
+            self.a_crop, self.mask = buf(Hc, Wc), buf(Hc, Wc)
+            self.out_s1, self.out_s2 = buf(), buf()
+            x0f, y0f = self.origin[0], self.origin[1]  # views: read at every run
+            f, vg = warp_pano.make_crop_objective(self.win, be.pano, order, sigma, measure,
+                                                  crop_hw, x0f, y0f, self.a_crop, self.mask,
+                                                  self.out_s1, self.out_s2)
+        else:
+            f, vg = warp_pano.make_pano_objective(self.win, be.pano, order, sigma, measure)
+        lam = be._prior_lam
+        if lam:  # quadratic prior toward the incoming knots (refine sweeps)
+            f0, vg0 = f, vg
+
+            def f(x):
+                return f0(x) + 0.5 * lam * torch.sum(x * x, dim=-1)
+
+            def vg(x):
+                v, g = vg0(x)
+                return v + 0.5 * lam * torch.sum(x * x, dim=-1), g + lam * x
+
+        self.cg = cg = optim.LaneCG(
+            vg, f, 1, 3 * K, dev, max_iters=o.max_line_searches, initial_step=o.initial_step,
+            line_search_tol=o.line_search_tol, grad_tol=o.grad_tol, fun_tol=o.fun_tol,
+            max_fevals_per_linesearch=o.max_fevals_per_linesearch,
+            stagnation_patience=o.stagnation_patience,
+            secant_refine_evals=o.secant_refine_evals, ladder=o.ladder,
+            cg_variant=o.cg_variant, trust_radius=cfg.max_ba_correction_rad)
+        self.x0 = buf(1, 3 * K)
+        self.iters, self.f0 = buf(1), buf(1)
+
+        def first():
+            self.f0.copy_(cg.s.f0)
+            self.iters.zero_()
+
+        def restart():
+            self.iters.add_(cg.s.it)
+
+        def epilogue():
+            win = self.win
+            drotv = cg.s.x[0].reshape(K, 3)
+            knots_new = spline.apply_masked_increments(win.knots, drotv, win.free_mask)
+            px, py = warp_pano.warp_to_pano(drotv, win, be.pano, order)
+            if self.crop is None:
+                il_old, _ = bilinear_accumulate_two(px, py, win.weights, ~win.is_old, H, W)
+                bbox = torch.zeros(4, device=dev)
+            else:
+                # Old/new split at the optimum on the crop, placed into the
+                # full pano, and the optimum's bounding box for the escape check.
+                ilo_c, _ = bilinear_accumulate_two(px - x0f, py - y0f, win.weights,
+                                                   ~win.is_old, *crop_hw)
+                rows = self.crop[0] + torch.arange(crop_hw[0], device=dev)
+                cols = self.crop[1] + torch.arange(crop_hw[1], device=dev)
+                il_old = torch.zeros((H, W), device=dev)
+                il_old[rows[:, None], cols[None, :]] = ilo_c
+                bbox = warp_pano.bbox_of(px, py, win.weights)
+            ig_new, upd_new = be._map_epilogue(il_old, knots_new, self.fov, win)
+            self.ig_out.copy_(ig_new)
+            self.upd_out.copy_(upd_new)
+            stats = torch.cat([self.f0, cg.s.f, (self.iters + cg.s.it).float(),
+                               win.alpha.reshape(1), bbox])
+            self.out.copy_(torch.cat([knots_new.reshape(-1), stats]))
+
+        def build(b):
+            cg.solve(b, self.x0)
+            b.seg(first)
+            for _ in range(be._ba_restarts):
+                # Bounded re-seeded restarts: a fresh full-scale bracket from
+                # the optimum (the JAX package's _build_crop_solver).
+                b.seg(restart)
+                cg.solve(b, cg.s.x)
+            b.seg(epilogue)
+
+        name = "backend.crop" if crop_hw is not None else "backend.full"
+        self.program = device_loop.Program(build, 4 * K + 8, dev, name=name)
+        self.out = self.program.out
+
+    def solve(self, win: PanoWindow, fov_rel, consts) -> np.ndarray:
+        """Copy the window and its constants into the buffers, run."""
+        for name in ("bearings", "batch_times", "weights", "is_old", "knots", "free_mask"):
+            getattr(self.win, name).copy_(getattr(win, name))
+        self.win.alpha.copy_(consts["alpha"])
+        self.fov.copy_(torch.as_tensor(fov_rel))
+        if self.crop is not None:
+            for name in ("crop", "a_crop", "mask", "out_s1", "out_s2"):
+                getattr(self, name).copy_(consts[name])
+            self.origin.copy_(consts["crop"][[1, 0]])
+        return self.program.run()

@@ -157,3 +157,26 @@ class EquirectCamera:
         return torch.stack(
             [cos_t * torch.sin(phi), torch.sin(theta), cos_t * torch.cos(phi)], dim=-1
         )
+
+
+def distort_points(pts_norm: np.ndarray, D: np.ndarray) -> np.ndarray:
+    """Forward plumb_bob distortion of normalized coordinates (for tests and
+    synthesis)."""
+    k1, k2, p1, p2, k3 = (list(D) + [0.0] * 5)[:5]
+    x, y = pts_norm[..., 0], pts_norm[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return np.stack([xd, yd], axis=-1)
+
+
+def canonical_project(points: torch.Tensor) -> torch.Tensor:
+    """Perspective division (..., 3) -> (..., 2) (canonicalProjection,
+    src/utils/image_geom_util.cpp:24-41)."""
+    return points[..., :2] / points[..., 2:3]
+
+
+def apply_intrinsics(pts: torch.Tensor, fx, fy, cx, cy) -> torch.Tensor:
+    """Pixel = K @ canonical (applyIntrinsics, src/utils/image_geom_util.cpp:7-22)."""
+    return torch.stack([fx * pts[..., 0] + cx, fy * pts[..., 1] + cy], dim=-1)

@@ -12,8 +12,8 @@ Usage:
       --calib calib.yaml --preset ijrr --out-dir out/ [--max-events N] \
       [--set key=value ...]
 
-``--device`` is required (``cpu`` or ``cuda``) and has no default: the port
-never picks a device for the caller, and ``cuda`` without a card raises.
+``--device`` is ``cuda`` (the default) or ``cpu``: the port runs on the card
+unless asked for the CPU, and ``cuda`` without a card raises.
 """
 
 from __future__ import annotations
@@ -46,9 +46,9 @@ _TAG = "[cmax-slam-tpu-torch]"
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="CMax-SLAM (PyTorch + CUDA port)")
-    p.add_argument("--device", required=True, choices=("cpu", "cuda"),
-                   help="where every solve and the maps live; required, no "
-                        "default ('cuda' without a card raises)")
+    p.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
+                   help="where every solve and the maps live (default: the "
+                        "card; 'cuda' without a card raises)")
     p.add_argument("--events", required=True,
                    help="event file (.txt/.zip/.npz/.h5/.bag), or '-' to "
                         "read a live 't x y p' text stream from stdin (the "

@@ -99,10 +99,10 @@ class FrontendConfig:
     # Coarse-to-fine CMax (no reference counterpart): solve on a 3x-blurred
     # IWE first, then refine at blur_sigma. Off by default.
     coarse_to_fine: bool = False
-    # Stride batching of the JAX package (the packets ready at one push in
-    # one device program, with the per-packet path's numerics). Accepted
-    # and without effect: the port solves every packet on the per-packet
-    # chain, whose solves read f and g on the host.
+    # Stride batching: > 0 solves the packets ready at one push (at least 2)
+    # in one device launch, one after another with the warm start handed on
+    # on the device (the JAX package's stride solver); 0 launches each
+    # packet alone. The same estimates either way, fewer host reads with it.
     batch_sweeps: int = 2
     # Device-resident event ring (io/devring.py): each event is uploaded
     # once and packets are gathered on the device; 0 = auto capacity (>= 16

@@ -1,5 +1,5 @@
-"""Packet-trigger scan and packet gather; host-only copies of the numpy
-fallbacks of cmax_slam_tpu/io/native.py::scan_triggers and ::gather_packet.
+"""Text parsing, packet-trigger scan, window search and packet gather;
+host-only copies of the numpy fallbacks of cmax_slam_tpu/io/native.py.
 
 The JAX package runs these in C++ when native/libevstream.so is built and in
 numpy otherwise; both give the same results. The port carries the numpy form
@@ -11,6 +11,20 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+
+
+def parse_events_txt(path: str, max_events: int = -1):
+    """Parse a 't x y p' text event file: (xs, ys, ts, ps)."""
+    from .events import read_events_txt
+
+    return read_events_txt(path, None if max_events < 0 else max_events)
+
+
+def window(ts: np.ndarray, t_beg: float, t_end: float) -> Tuple[int, int]:
+    """Index range [lo, hi) of the sorted times in [t_beg, t_end)."""
+    ts = np.ascontiguousarray(ts, np.float64)
+    return (int(np.searchsorted(ts, t_beg, side="left")),
+            int(np.searchsorted(ts, t_end, side="left")))
 
 
 def scan_triggers(

@@ -16,6 +16,16 @@ import torch
 _EPS = 1e-6
 
 
+def hat(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix of ``v``: hat(v) @ x == cross(v, x)
+    (cross2Matrix, include/utils/image_geom_util.h:5-8)."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack([torch.stack([zero, -z, y], dim=-1),
+                        torch.stack([z, zero, -x], dim=-1),
+                        torch.stack([-y, x, zero], dim=-1)], dim=-2)
+
+
 def exp(rotvec: torch.Tensor) -> torch.Tensor:
     """Exponential map: rotation vector -> unit quaternion (w, x, y, z)."""
     theta_sq = torch.sum(rotvec * rotvec, dim=-1, keepdim=True)
@@ -66,7 +76,7 @@ def mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 def inv(q: torch.Tensor) -> torch.Tensor:
     """Inverse of a unit quaternion (conjugate)."""
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def normalize(q: torch.Tensor) -> torch.Tensor:
@@ -117,3 +127,34 @@ def rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     u, v = torch.broadcast_tensors(u, v)
     t = 2.0 * torch.linalg.cross(u, v, dim=-1)
     return v + w * t + torch.linalg.cross(u, t, dim=-1)
+
+
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    """The identity quaternion (w, x, y, z)."""
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
+def left_jacobian(rotvec: torch.Tensor) -> torch.Tensor:
+    """Left Jacobian J_l of SO(3) (Sophus::leftJacobianSO3,
+    basalt/utils/sophus_utils.hpp:333-371)."""
+    theta_sq = torch.sum(rotvec * rotvec, dim=-1)[..., None, None]
+    small = theta_sq < _EPS * _EPS
+    safe = torch.sqrt(torch.where(small, torch.ones_like(theta_sq), theta_sq))
+    K = hat(rotvec)
+    a = torch.where(small, 0.5 - theta_sq / 24.0, (1.0 - torch.cos(safe)) / (safe * safe))
+    b = torch.where(small, 1.0 / 6.0 - theta_sq / 120.0, (safe - torch.sin(safe)) / safe**3)
+    eye = torch.eye(3, dtype=rotvec.dtype, device=rotvec.device)
+    return eye + a * K + b * (K @ K)
+
+
+def left_jacobian_inv(rotvec: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian of SO(3) (Sophus::leftJacobianInvSO3,
+    basalt/utils/sophus_utils.hpp:373-411)."""
+    theta_sq = torch.sum(rotvec * rotvec, dim=-1)[..., None, None]
+    small = theta_sq < _EPS * _EPS
+    safe = torch.sqrt(torch.where(small, torch.ones_like(theta_sq), theta_sq))
+    K = hat(rotvec)
+    cot = torch.where(small, 1.0 / 12.0 + theta_sq / 720.0,
+                      1.0 / (safe * safe) - (1.0 + torch.cos(safe)) / (2.0 * safe * torch.sin(safe)))
+    eye = torch.eye(3, dtype=rotvec.dtype, device=rotvec.device)
+    return eye - 0.5 * K + cot * (K @ K)

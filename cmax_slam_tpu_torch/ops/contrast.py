@@ -33,7 +33,8 @@ def mean_square(image: torch.Tensor) -> torch.Tensor:
 
 def _reflect101(n: int, device) -> torch.Tensor:
     """Indices of a one-pixel BORDER_REFLECT_101 pad: [1, 0, 1, ..., n-1, n-2]."""
-    return torch.cat([torch.tensor([1]), torch.arange(n), torch.tensor([n - 2])]).to(device)
+    i = torch.arange(-1, n + 1, device=device).abs()
+    return torch.where(i >= n, 2 * (n - 1) - i, i)
 
 
 def _sobel(image: torch.Tensor, axis: int) -> torch.Tensor:

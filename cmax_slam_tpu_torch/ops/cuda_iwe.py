@@ -48,34 +48,41 @@ Nothing is imported or compiled when this module is imported. There is no
 fallback: a build or launch that fails raises, and no variant stands in for
 another.
 
-``LAUNCHES`` counts kernel launches, one per launch and nowhere else, so a
-run can show that its votes went through the kernels: ``"fwd"`` is every K1
-launch and ``"fwd_P"``, ``"fwd_G"`` split it by variant; ``"bwd"``,
-``"bwd_S"`` and ``"bwd_G"`` do the same for K2. The build, the
-counts and the per-device set-up are guarded by a lock: the multi-device
-modes drive votes from several host threads.
+``LAUNCHES`` counts executed kernel launches, so a run can show that its
+votes went through the kernels: ``"fwd"`` is every K1 launch and
+``"fwd_P"``, ``"fwd_G"`` split it by variant; ``"bwd"``, ``"bwd_S"`` and
+``"bwd_G"`` do the same for K2. A wrapper counts a launch where it makes it,
+and nowhere else. A launch made while its stream is captured into a CUDA
+graph (ops/device_loop.py) runs only when the graph does, perhaps many
+times: the wrapper hands it to the recorder that ``recording`` installs,
+and the graph adds it to the counts once for every time the device ran it.
+``GRAPH_LAUNCHES`` is the part of them that ran inside graphs.
+``SHAPE_LAUNCHES``, when set to a dict, also counts launches by (kernel,
+variant, images, events, height, width). The build, the counts and the
+per-device set-up are guarded by a lock: the multi-device modes drive votes
+from several host threads.
 """
 
 from __future__ import annotations
 
-import hashlib
+import contextlib
 import math
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
-LAUNCHES = {"fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0}
+from . import nvcc
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "iwe.cu"
-BUILD_DIR = _PKG_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+LAUNCHES = {"fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0}
+GRAPH_LAUNCHES = dict.fromkeys(LAUNCHES, 0)  # the part of LAUNCHES run inside CUDA graphs
+SHAPE_LAUNCHES: dict | None = None
+_recorder: list | None = None  # launches captured into the graph being built (one at a
+                               # time; autograd runs a backward on a thread of its own)
+
+SOURCE = nvcc.CSRC / "iwe.cu"
+BUILD_DIR = nvcc.BUILD_DIR
 
 # K1 planner constants (tools/tune_vote_fwd.py on an H100, PERF.md).
 P_MAX_BANDS = 4       # a band plan re-reads every event once per band: G beyond
@@ -206,23 +213,19 @@ def sum_rows(d: torch.Tensor, r: int) -> torch.Tensor:
     return d if d.shape[0] == r else d.reshape(r, -1, d.shape[1]).sum(1)
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
-
-
 def nvcc_flags() -> tuple:
-    """NVCC_FLAGS and the constants compiled in: K2's G block size."""
-    return (*NVCC_FLAGS, f"-DIWE_BWD_G_THREADS={G_BWD_THREADS}")
+    """nvcc's flags and the constants compiled in: K2's G block size."""
+    return (*nvcc.NVCC_FLAGS, f"-DIWE_BWD_G_THREADS={G_BWD_THREADS}")
 
 
 def library_path() -> Path:
     """Where the build for the current source and flags lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(nvcc_flags()).encode())
-    return BUILD_DIR / f"libiwe_{digest.hexdigest()[:16]}.so"
+    return nvcc.library_path(SOURCE, nvcc_flags(), "libiwe")
+
+
+def build_job() -> tuple:
+    """(source, flags, library) for nvcc.compile_all."""
+    return SOURCE, nvcc_flags(), library_path()
 
 
 def build():
@@ -240,17 +243,8 @@ def _build_locked():
         return _loaded[flags]
     import ctypes
 
+    nvcc.compile_all([build_job()])
     so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
@@ -306,6 +300,43 @@ def _allow_smem(lib, device: torch.device) -> None:
             _smem_ready.add(key)
 
 
+def count_launches(kernel: str, variant: str, shape: tuple, times: int = 1,
+                   in_graph: bool = False) -> None:
+    """Add ``times`` executed launches of one kernel variant at ``shape``
+    (images, events, height, width) to LAUNCHES and SHAPE_LAUNCHES, and to
+    GRAPH_LAUNCHES when a CUDA graph ran them."""
+    with _lock:
+        for counts in (LAUNCHES, GRAPH_LAUNCHES) if in_graph else (LAUNCHES,):
+            counts[kernel] += times
+            counts[f"{kernel}_{variant}"] += times
+        if SHAPE_LAUNCHES is not None:
+            key = (kernel, variant, *shape)
+            SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + times
+
+
+@contextlib.contextmanager
+def recording(rec: list):
+    """While a graph is captured: each launch the wrappers make on a
+    capturing stream is appended to ``rec`` as (kernel, variant, shape)
+    instead of being counted; the graph counts it per execution."""
+    global _recorder
+    prev, _recorder = _recorder, rec
+    try:
+        yield rec
+    finally:
+        _recorder = prev
+
+
+def _launched(kernel: str, variant: str, shape: tuple) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        if _recorder is None:
+            raise RuntimeError(f"a {kernel} launch was captured outside device_loop: its "
+                               "executions could not be counted")
+        _recorder.append((kernel, variant, shape))
+    else:
+        count_launches(kernel, variant, shape)
+
+
 def _check_events(px, py, w, b):
     """Validates compact (R, N) operands for b images; returns b."""
     ops = (px, py, w)
@@ -354,9 +385,7 @@ def vote_fwd(px: torch.Tensor, py: torch.Tensor, w: torch.Tensor, height: int, w
     alloc = torch.empty if plan.variant == "P" else torch.zeros
     out = alloc((b, height, width), dtype=torch.float32, device=px.device)
     launch_fwd(plan, px, py, w, out, b, height, width)
-    with _lock:
-        LAUNCHES["fwd"] += 1
-        LAUNCHES["fwd_" + plan.variant] += 1
+    _launched("fwd", plan.variant, (b, n, height, width))
     return out
 
 
@@ -400,9 +429,7 @@ def vote_bwd(px: torch.Tensor, py: torch.Tensor, w: torch.Tensor, g: torch.Tenso
     if plan.variant == "S" and g.data_ptr() % 16:
         g = g.clone()  # a fresh allocation is aligned for the bulk copies
     launch_bwd(plan, px, py, w, g, dpx, dpy, dw, b)
-    with _lock:
-        LAUNCHES["bwd"] += 1
-        LAUNCHES["bwd_" + plan.variant] += 1
+    _launched("bwd", plan.variant, (b, n, g.shape[1], g.shape[2]))
     return dpx, dpy, dw
 
 

@@ -99,3 +99,14 @@ def bilinear_accumulate_two(px: torch.Tensor, py: torch.Tensor, weights: torch.T
     w2 = torch.stack([weights * (1.0 - sel), weights * sel])
     both = vote(px, py, w2, height, width)
     return both[0], both[1]
+
+
+def bilinear_sample(image: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """Bilinear interpolation of an (H, W) ``image`` at (px, py), the vote's
+    adjoint (a rendering and parity utility)."""
+    H, W = image.shape
+    x0 = torch.clamp(torch.floor(px).to(torch.int64), 0, W - 2)
+    y0 = torch.clamp(torch.floor(py).to(torch.int64), 0, H - 2)
+    dx, dy = px - x0, py - y0
+    return (image[y0, x0] * (1 - dx) * (1 - dy) + image[y0, x0 + 1] * dx * (1 - dy)
+            + image[y0 + 1, x0] * (1 - dx) * dy + image[y0 + 1, x0 + 1] * dx * dy)

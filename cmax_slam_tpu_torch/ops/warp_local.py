@@ -55,11 +55,12 @@ class EventPacket(NamedTuple):
 
 
 def batch_midpoint_dts(ts: torch.Tensor, valid: torch.Tensor, batch_size: int,
-                       t_ref: float) -> torch.Tensor:
+                       t_ref) -> torch.Tensor:
     """Per-event effective dt with batch-shared midpoint semantics: every
     event of a ``batch_size`` batch warps with dt = (t_first + t_last)/2 -
     t_ref over the batch's valid events (local_image_warped_events.cpp:67-75).
-    ``ts`` must be padded to a multiple of batch_size."""
+    ``ts`` must be padded to a multiple of batch_size; ``t_ref`` is a number
+    or a 0-dim float32 tensor (a device scalar inside a captured solve)."""
     if ts.shape[0] % batch_size:
         raise ValueError("pad the packet to a multiple of event_batch_size")
     tsb = ts.reshape(-1, batch_size)
@@ -70,6 +71,15 @@ def batch_midpoint_dts(ts: torch.Tensor, valid: torch.Tensor, batch_size: int,
     mid = t_first + 0.5 * (t_last - t_first)
     dt = torch.where(vb.any(dim=1), mid - t_ref, 0.0)
     return dt.repeat_interleave(batch_size)
+
+
+def make_packet(xs: torch.Tensor, ys: torch.Tensor, ts: torch.Tensor, valid: torch.Tensor,
+                lut: torch.Tensor, cam: CameraParams, batch_size: int, t_ref) -> EventPacket:
+    """An EventPacket from raw event arrays and the bearing LUT; invalid
+    lanes gather pixel 0 and weigh 0."""
+    idx = torch.where(valid, ys.to(torch.int64) * cam.width + xs.to(torch.int64), 0)
+    return EventPacket(bearings=lut[idx], dts=batch_midpoint_dts(ts, valid, batch_size, t_ref),
+                       weights=valid.to(torch.float32))
 
 
 def _align(omega: torch.Tensor, packet: EventPacket) -> EventPacket:

@@ -121,17 +121,18 @@ def make_pano_objective(win: PanoWindow, pano: EquirectCamera, order: int,
 # ---------------------------------------------------------------------------
 
 def interior_mask(height: int, width: int, bounds, device) -> torch.Tensor:
-    """(H, W) float mask of the interior [vy0, vy1) x [vx0, vx1)."""
-    vy0, vy1, vx0, vx1 = (int(v) for v in bounds)
-    m = torch.zeros((height, width), dtype=torch.float32, device=device)
-    m[vy0:vy1, vx0:vx1] = 1.0
-    return m
+    """(H, W) float mask of the interior [vy0, vy1) x [vx0, vx1); ``bounds``
+    may be host ints or a device tensor (nothing is read on the host)."""
+    vy0, vy1, vx0, vx1 = torch.as_tensor(bounds, device=device).to(torch.int64).unbind()
+    r = torch.arange(height, device=device)[:, None]
+    c = torch.arange(width, device=device)[None, :]
+    return ((r >= vy0) & (r < vy1) & (c >= vx0) & (c < vx1)).to(torch.float32)
 
 
-def warp_bbox(drotv, win: PanoWindow, pano: EquirectCamera, order: int) -> torch.Tensor:
-    """(min px, max px, min py, max py) over valid events; +-inf when empty."""
-    px, py = warp_to_pano(drotv, win, pano, order)
-    valid = win.weights > 0
+def bbox_of(px: torch.Tensor, py: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """(min px, max px, min py, max py) over events of non-zero weight;
+    +-inf when there are none."""
+    valid = weights > 0
     inf = float("inf")
     return torch.stack([
         torch.where(valid, px, inf).amin(), torch.where(valid, px, -inf).amax(),
@@ -139,15 +140,22 @@ def warp_bbox(drotv, win: PanoWindow, pano: EquirectCamera, order: int) -> torch
     ])
 
 
+def warp_bbox(drotv, win: PanoWindow, pano: EquirectCamera, order: int) -> torch.Tensor:
+    """bbox_of the events warped by ``drotv``."""
+    px, py = warp_to_pano(drotv, win, pano, order)
+    return bbox_of(px, py, win.weights)
+
+
 def make_crop_objective(win: PanoWindow, pano: EquirectCamera, order: int,
                         blur_sigma: float, measure: int, crop_hw: tuple,
-                        x0f: float, y0f: float, a_crop: torch.Tensor,
+                        x0f, y0f, a_crop: torch.Tensor,
                         mask: torch.Tensor, out_s1, out_s2):
     """Crop-decomposed negative-contrast objective over R^{3K}, equal to
-    make_pano_objective's value under the crop invariants. a_crop is the
-    constant alpha * blur(IG') under the crop; out_s1/out_s2 the constant
-    stats of that term outside the valid interior. f takes (3K,) or a
-    (M, 3K) batch."""
+    make_pano_objective's value under the crop invariants. x0f, y0f are the
+    crop origin (numbers or 0-dim device tensors); a_crop is the constant
+    alpha * blur(IG') under the crop; out_s1/out_s2 the constant stats of
+    that term outside the valid interior. f takes (3K,) or a (M, 3K)
+    batch."""
     K = win.knots.shape[0]
     Hc, Wc = crop_hw
     n_total = pano.height * pano.width
@@ -168,20 +176,25 @@ def crop_window_constants(win: PanoWindow, pano: EquirectCamera, order: int,
     """Per-window constants of the crop objective: alpha from the
     zero-increment IL (its full-image density equals its crop density), the
     a_crop slice, the interior mask and the outside stats. ``crop_ints`` =
-    [y0, x0, vy0, vy1, vx0, vx1] host ints. Returns (win_with_alpha, x0f,
-    y0f, a_crop, mask, out_s1, out_s2)."""
+    [y0, x0, vy0, vy1, vx0, vx1], host ints or a device tensor: the crop is
+    placed on the device, as the JAX package reads it there, and nothing is
+    read on the host. Returns (win_with_alpha, x0f, y0f, a_crop, mask,
+    out_s1, out_s2); x0f and y0f are 0-dim device tensors."""
     Hc, Wc = crop_hw
-    y0, x0 = int(crop_ints[0]), int(crop_ints[1])
-    x0f, y0f = float(x0), float(y0)
+    dev = win.knots.device
+    ints = torch.as_tensor(crop_ints, device=dev).to(torch.int64)
+    x0f, y0f = ints[1].to(torch.float32), ints[0].to(torch.float32)
     K = win.knots.shape[0]
-    zeros = torch.zeros((K, 3), dtype=torch.float32, device=win.knots.device)
+    zeros = torch.zeros((K, 3), dtype=torch.float32, device=dev)
     px0, py0 = warp_to_pano(zeros, win, pano, order)
     il0 = vote(px0 - x0f, py0 - y0f, win.weights, Hc, Wc)
     alpha = compute_alpha(il0, win.ig_prime)
 
     a_full = alpha * gaussian_blur(win.ig_prime, blur_sigma)
-    a_crop = a_full[y0:y0 + Hc, x0:x0 + Wc]
-    mask = interior_mask(Hc, Wc, crop_ints[2:6], win.knots.device)
+    rows = ints[0] + torch.arange(Hc, device=dev)
+    cols = ints[1] + torch.arange(Wc, device=dev)
+    a_crop = a_full[rows[:, None], cols[None, :]]
+    mask = interior_mask(Hc, Wc, ints[2:6], dev)
     s1_full, s2_full = contrast_mod.full_stats(a_full, measure)
     s1_v, s2_v = contrast_mod.region_stats(a_crop, mask, measure)
     return (win._replace(alpha=alpha), x0f, y0f, a_crop, mask,

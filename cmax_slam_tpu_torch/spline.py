@@ -56,9 +56,15 @@ def _segment_and_u(t: torch.Tensor, t0, dt, num_knots: int, order: int):
     return s, u
 
 
+@functools.lru_cache(maxsize=16)
+def _blending_tensor(order: int, dtype, device: str) -> torch.Tensor:
+    """The cumulative blending matrix resident on ``device``, uploaded once:
+    code captured into a CUDA graph may not copy from the host."""
+    return torch.as_tensor(blending_matrix(order, cumulative=True), dtype=dtype, device=device)
+
+
 def _coeffs(u: torch.Tensor, order: int, dtype) -> torch.Tensor:
-    M = torch.as_tensor(blending_matrix(order, cumulative=True), dtype=dtype,
-                        device=u.device)
+    M = _blending_tensor(order, dtype, str(u.device))
     up = torch.stack([u**i for i in range(order)], dim=-1)
     return up @ M
 
@@ -78,6 +84,32 @@ def evaluate(knots: torch.Tensor, t: torch.Tensor, t0, dt, order: int) -> torch.
         delta = lie.log(lie.mul(lie.inv(kq[..., j - 1, :]), kq[..., j, :]))
         res = lie.mul(res, lie.exp(coeff[..., j, None] * delta))
     return res
+
+
+def evaluate_with_jacobian(knots: torch.Tensor, t: torch.Tensor, t0, dt, order: int):
+    """Closed-form Jacobian d(R(t)) / d(left perturbation of each knot), the
+    recursion of So3Spline::evaluate with J != nullptr (so3_spline.h:237-273);
+    a test oracle, the paths differentiate ``evaluate`` by autograd. Returns
+    (quaternion, start index, (..., order, 3, 3))."""
+    num_knots = knots.shape[0]
+    s, u = _segment_and_u(t, t0, dt, num_knots, order)
+    coeff = _coeffs(u, order, knots.dtype)
+    kq = knots[s[..., None] + torch.arange(order, device=knots.device)]
+    res = kq[..., 0, :]
+    J_helper = torch.eye(3, dtype=knots.dtype, device=knots.device).expand(*t.shape, 3, 3)
+    Js = []
+    for j in range(1, order):
+        q0, q1 = kq[..., j - 1, :], kq[..., j, :]
+        delta = lie.log(lie.mul(lie.inv(q0), q1))
+        kdelta = coeff[..., j, None] * delta
+        Ji = J_helper
+        J_helper = coeff[..., j, None, None] * (
+            lie.to_matrix(res) @ lie.left_jacobian(kdelta) @ lie.left_jacobian_inv(delta)
+            @ lie.to_matrix(lie.inv(q0)))
+        Js.append(Ji - J_helper)
+        res = lie.mul(res, lie.exp(kdelta))
+    Js.append(J_helper)
+    return res, s, torch.stack(Js, dim=-3)
 
 
 def _soa_mul(a, b):
@@ -304,6 +336,13 @@ def _np_quat_log(q):
     return 2.0 * np.arctan2(n, w) * xyz / n
 
 
+def interp_pose_mid(t1, q1, t2, q2):
+    """SO(3) midpoint interpolation (Trajectory::interpPoseMid,
+    trajectory.cpp:7-20), on the host."""
+    dq = _np_quat_mul(q1 * np.array([1.0, -1, -1, -1]), q2)
+    return 0.5 * (t1 + t2), _np_quat_mul(q1, _np_quat_exp(0.5 * _np_quat_log(dq)))
+
+
 class Trajectory:
     """Host-side growing trajectory (cmax_slam::Trajectory,
     include/backend/trajectory.h:25-78). Holds knots as float64 numpy."""
@@ -326,6 +365,14 @@ class Trajectory:
 
     def knot_time(self, i: int) -> float:
         return self.t_beg + i * self.dt_knots
+
+    def generate_ctrl_poses(self, pose_times: np.ndarray, pose_quats: np.ndarray,
+                            t_beg: float, t_end: float) -> np.ndarray:
+        """round(span / dt) + degree knots fitted to pose samples
+        (LinearTrajectory::generateCtrlPoses, trajectory.cpp:210-219;
+        CubicTrajectory, :480-489)."""
+        num_cps = int(round((t_end - t_beg) / self.dt_knots)) + self.degree
+        return fit_ctrl_poses(pose_times, pose_quats, t_beg, self.dt_knots, num_cps, self.order)
 
     def push_ctrl_poses(self, quats: np.ndarray) -> None:
         self.knots = np.concatenate([self.knots, np.atleast_2d(quats)], axis=0)

@@ -25,9 +25,9 @@ from .utils.metrics import Metrics
 
 class CMaxSLAM:
     def __init__(self, calib: CameraCalibration, cfg: Optional[SystemConfig] = None, *,
-                 device, backend_device=None, run_backend: bool = True):
+                 device=None, backend_device=None, run_backend: bool = True):
         """``device``: where the front-end's packet solves run ('cpu' or
-        'cuda'); required, and 'cuda' without a usable card raises.
+        'cuda'; default the card), and 'cuda' without a usable card raises.
         ``backend_device``: where the back-end's maps, LUT and window solves
         live (default: ``device``); a second card maps the reference's
         back-end thread (src/cmax_slam.cpp:92) onto its own chip. The two

@@ -222,10 +222,13 @@ def test_errors_match_jax(data, capsys):
         for run in (jcli.main, lambda a: cli.main(["--device", "cpu", *a])):
             with pytest.raises(SystemExit, match=msg):
                 run(argv)
-    # the device is required and has no default
-    with pytest.raises(SystemExit):
-        cli.main(cases[0][0][:-2])
-    assert "--device" in capsys.readouterr().err
+    # the device defaults to the card: without one, no flag and --device cuda
+    # both raise instead of running on the CPU
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(_args(data, "nocard"))
+        with pytest.raises(RuntimeError, match="cuda"):
             cli.main(["--device", "cuda", *_args(data, "nocard")])
+    with pytest.raises(SystemExit):
+        cli.main(["--device", "tpu", *_args(data, "badchoice")])
+    assert "--device" in capsys.readouterr().err

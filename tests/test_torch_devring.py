@@ -116,9 +116,9 @@ def test_contents_match_jax_ring(rng):
 
 @pytest.mark.parametrize("capacity", [0, 1 << 14])
 def test_ring_packet_equals_host_packet(capacity):
-    """Every packet gathered from the ring is torch.equal to the one
-    gathered from the host store: the default ring, and one of 2^14 events
-    in which packets wrap."""
+    """Every packet the solver program gathers from the ring is torch.equal
+    to the one gathered from the host store: the default ring, and one of
+    2^14 events in which packets wrap."""
     rng = np.random.default_rng(2)
     ev = synthetic.rotating_camera_events(rng, 24000, 0.2, np.array([0.9, -1.4, 2.0]), F, F,
                                           W / 2, H / 2, W, H, n_points=250)
@@ -128,21 +128,33 @@ def test_ring_packet_equals_host_packet(capacity):
                          device_store_capacity=capacity)
     fe = Frontend(CameraParams(F, F, W / 2, H / 2, W, H), lut, cfg, device="cpu")
     checked, wrapped = 0, 0
-    gather = fe._ring_packet
+    assemble, launch = fe._assemble, fe._launch
+    gathered = []  # the packets one launch's program assembled, lane by lane
 
-    def check(beg, n, t_ref):
+    def spy_assemble(*args):
+        packet = assemble(*args)
+        gathered.append(packet)
+        return packet
+
+    def check(ests, flags):
         nonlocal checked, wrapped
-        ring = gather(beg, n, t_ref)
-        xs, ys, ts, _ = fe.store.slice_abs(beg, beg + n)
-        host = fe._packet(xs, ys, ts, t_ref)
-        for a, b in zip(ring, host):
-            assert a.dtype == b.dtype and torch.equal(a, b)
-        checked += 1
-        cap = fe._ring.capacity
-        wrapped += (beg & (cap - 1)) + fe.packet_size > cap
-        return ring
+        gathered.clear()
+        ring = [e is not None and fl > 0 and fe._from_ring(e.span[0])
+                for e, fl in zip(ests, flags)]
+        launch(ests, flags)
+        for est, from_ring, packet in zip(ests, ring, gathered):
+            if not from_ring:
+                continue
+            beg, end = est.span
+            xs, ys, ts, _ = fe.store.slice_abs(beg, end)
+            host = fe._packet(xs, ys, ts, float(np.float32(est.t - fe._t0)))
+            for a, b in zip(packet, host):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+            checked += 1
+            cap = fe._ring.capacity
+            wrapped += (beg & (cap - 1)) + fe.packet_size > cap
 
-    fe._ring_packet = check
+    fe._assemble, fe._launch = spy_assemble, check
     for i in range(0, len(ev.ts), 3000):
         fe.push_events(ev.xs[i:i + 3000], ev.ys[i:i + 3000], ev.ts[i:i + 3000],
                        ev.pols[i:i + 3000])

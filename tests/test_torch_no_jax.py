@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of cmax_slam_tpu_torch pulls
 in neither jax nor the JAX package, and triggers no kernel build (the card's
 machine has no JAX, and CPU collection must never need nvcc). Also: every
-public constructor takes an explicit device and refuses a CUDA device it
-cannot use."""
+public constructor runs on the card unless asked for the CPU, and refuses a
+CUDA device it cannot use."""
 
 import os
 import subprocess
@@ -67,15 +67,16 @@ def test_importing_every_module_needs_no_jax_and_builds_nothing(tmp_path):
 
 
 def test_device_is_explicit_and_checked():
+    """The device defaults to the card: without one, the default and an
+    explicit 'cuda' both raise; the CPU runs only when asked for."""
     K = np.array([[90.0, 0, 60], [0, 90.0, 45], [0, 0, 1]])
     calib = CameraCalibration(width=120, height=90, K=K)
-    with pytest.raises(TypeError):
-        CMaxSLAM(calib, ijrr_config())  # no default device
     with pytest.raises(ValueError):
-        CMaxSLAM(calib, ijrr_config(), device=None)
+        CMaxSLAM(calib, ijrr_config(), device="meta")
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="cuda"):
-            CMaxSLAM(calib, ijrr_config(), device="cuda")
+        for kw in ({}, dict(device=None), dict(device="cuda")):
+            with pytest.raises(RuntimeError, match="cuda"):
+                CMaxSLAM(calib, ijrr_config(), **kw)
     slam = CMaxSLAM(calib, ijrr_config(), device="cpu")
     assert slam.backend.IG.device.type == "cpu"
     assert slam.frontend.lut.device.type == "cpu"

@@ -229,30 +229,25 @@ def test_launch_buckets_name_the_phase3_shape_a_path_launch_stands_for(tag):
 
 
 def test_launch_spy_counts_each_k1_launch_by_shape_and_variant_and_is_removed(monkeypatch):
-    """The spy reads shapes and hands every call to the wrapper it wraps (a
-    stub here, so nothing reaches the card); a call of no events launches
-    nothing and is not counted; removing it puts the wrapper back."""
-    calls = []
-
-    def stub(px, py, w, height, width, b=None, **kw):
-        calls.append((height, width, b))
-        return "image"
-
-    monkeypatch.setattr(cuda_iwe, "vote_fwd", stub)
-    monkeypatch.setattr(cuda_iwe, "device_attrs", lambda device: (SMS, OPTIN))
+    """The spy reads the wrappers' own counts by shape (cuda_iwe.count_launches,
+    which every launch reaches, and every execution of a launch captured in a
+    CUDA graph): K1's launches by shape bucket and variant, K2's left out;
+    removing it stops the counting by shape."""
+    monkeypatch.setattr(cuda_iwe, "LAUNCHES", dict.fromkeys(cuda_iwe.LAUNCHES, 0))
     tally = {}
     remove = chip_smoke._spy_fwd_shapes(tally, (180, 240), (512, 1024))
-    rows = lambda r, n=10: torch.zeros(r, n)  # noqa: E731
-    assert cuda_iwe.vote_fwd(rows(9), rows(9), rows(1), 180, 240) == "image"
-    cuda_iwe.vote_fwd(rows(1), rows(1), rows(1), 180, 240)
-    cuda_iwe.vote_fwd(rows(1), rows(1), rows(2), 512, 1024)
-    cuda_iwe.vote_fwd(rows(224), rows(224), rows(224), 180, 240, 2016)
-    cuda_iwe.vote_fwd(rows(1, 0), rows(1, 0), rows(1, 0), 180, 240)
+    cuda_iwe.count_launches("fwd", "G", (9, 10, 180, 240))
+    cuda_iwe.count_launches("fwd", "G", (1, 10, 180, 240), times=3)  # a captured launch run 3x
+    cuda_iwe.count_launches("fwd", "G", (2, 10, 512, 1024))
+    cuda_iwe.count_launches("fwd", "P", (2016, 10, 180, 240))
+    cuda_iwe.count_launches("bwd", "G", (1, 10, 180, 240))
     remove()
-    assert cuda_iwe.vote_fwd is stub and len(calls) == 5
+    assert cuda_iwe.SHAPE_LAUNCHES is None
+    cuda_iwe.count_launches("fwd", "G", (1, 10, 180, 240))  # counted, not by shape
+    assert cuda_iwe.LAUNCHES["fwd"] == 7 and cuda_iwe.LAUNCHES["bwd_G"] == 1
     assert tally == {
         "sweep": {"launches": 1, "events": 90, "variants": {"G": 1}},
-        "packet": {"launches": 1, "events": 10, "variants": {"G": 1}},
+        "packet": {"launches": 3, "events": 30, "variants": {"G": 3}},
         "split": {"launches": 1, "events": 20, "variants": {"G": 1}},
         "camera b=2016": {"launches": 1, "events": 20_160, "variants": {"P": 1}}}
 
