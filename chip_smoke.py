@@ -31,7 +31,9 @@ Phases, in order; any failure exits non-zero:
    F.grid_sample as a yardstick;
    Then the loop predicate: a WHILE node with a nested IF node run as one
    graph against the same program with its gates read on the host (equal
-   results and predicate executions), with the time per iteration of each;
+   results and predicate executions), with the time per iteration of each
+   and the predicate kernel's own device time; and three launches of one
+   program in flight together, each fetching its own number;
 4. system: CMaxSLAM on the stock ijrr preset, driven through push_events on a
    2.0 s synthetic 240x180 stream at 390k ev/s (make_stream), must keep its
    state on the card, gather its packets from the device event ring (the
@@ -40,11 +42,17 @@ Phases, in order; any failure exits non-zero:
    launches counted and printed by shape bucket: packet, sweep, crop,
    split, with the variant the planner took, counted per graph execution)
    and track the ground truth to < 0.3 deg RMS. Every packet launch, stride
-   and window solve must run as a captured CUDA graph (ops/device_loop.py)
-   with one host read per front-end launch, fewer than one per packet on
-   strides and at most two per window; prints graph launches per path, the
-   loop predicate's executions, captures and their seconds, host reads per
-   packet and per window and the peak device memory. A captured evaluation
+   and window solve must run as a captured CUDA graph (ops/device_loop.py),
+   and the loop must run ahead of the card as the JAX package's does: in
+   the push loop the front-end waits no time and the back-end at most once
+   per completed window (its fused fetch), besides the stream's start (two)
+   and the synchronous re-solves (crop escape, bootstrap), by the counters;
+   and no call synchronizes outside the captures, by
+   torch.cuda.set_sync_debug_mode("warn") (SyncAudit, which also counts
+   the explicit waits by call site); each window comes back from step() or
+   flush() exactly once. Prints graph launches per path, the loop
+   predicate's executions, captures and their seconds, the waits per
+   packet, per stride and per window and the peak device memory. A captured evaluation
    of the packet and of the crop objective must match the same objective on
    the plain vote on the card, and the graphed packet solves minimize_fr_cg
    (the host loop) solving the same packets from the same warm starts
@@ -55,7 +63,8 @@ Phases, in order; any failure exits non-zero:
    inputs: what differs is K1's atomic sum order); the largest difference
    must stay under 0.1 rad/s, or the packet that carries it, solved again
    alone from both schedules' warm starts, must reach both logged values;
-   both walls are printed. Then a ring of 2^15 events on 0.6 s of the
+   both walls are printed, and the host schedule too must show no wait per
+   packet. Then a ring of 2^15 events on 0.6 s of the
    stream, cut, saved and resumed: appends and packets wrap, the resync
    wraps, lapped packets are gathered from the host store, and every ring
    packet equals its host packet. Then the cubic system: the stock preset
@@ -64,14 +73,16 @@ Phases, in order; any failure exits non-zero:
    after two windows, saved, loaded into a fresh CMaxSLAM (its ring rebuilt
    from the restored store) and fed the rest: the same window count and
    refined-pose times, the resumed trajectory within 0.05 deg RMS of the
-   uninterrupted one. RMS readings are printed also with the quaternions
-   left unnormalized, the JAX package's yardstick;
+   uninterrupted one. The ring and resume runs print their synchronizing
+   calls and waits by call site. RMS readings are printed also with the
+   quaternions left unnormalized, the JAX package's yardstick;
 5. cli: the same stream written to an IJRR 't x y p' text file and run
    through ``cmax_slam_tpu_torch.cli.main`` on the stock ijrr preset with a
    refine pass, IWE-pair and map dumps: all outputs written, every event
    read back, >= 15 windows, both kernels launched (K1 also inside the IWE
-   renders), the TUM trajectory < 0.3 deg RMS; then a run cut at 1.0 s and
-   one resuming its final_state.npz must continue the packet grid;
+   renders), the TUM trajectory < 0.3 deg RMS, its synchronizing calls and
+   waits printed by call site; then a run cut at 1.0 s and one resuming its
+   final_state.npz must continue the packet grid;
 6. batched: ``cut_packets`` and ``track_batched_compacted(sweeps=2)`` on the
    same stream at full width (240x180, 10 000-event packets, the stock ijrr
    front-end): median |omega - omega_true| < 0.2 rad/s, every lane's
@@ -667,20 +678,25 @@ def _rms_vs_truth(traj, omega, samples: int = 80):
 def _spy_packets(fe) -> dict:
     """Hold every packet the front-end ``fe`` solves from its device ring
     against the packet gathered from the host store for the same span
-    (torch.equal, dtypes too): the ring gather run alone for each live lane
-    of a launch from the ring, and the packet the launch's program itself
-    gathered last (its static buffers) against its host packet. Counts the
+    (dtypes, shapes and values): the ring gather run alone for each live
+    lane of a launch from the ring, and the packet the launch's program
+    itself gathered last (its static buffers) against its host packet. The
+    values are compared on the device, queued behind the launch, so the
+    checks wait for nothing; _read_spy reads them after the run. Counts the
     lanes solved from each source. Returns the live tally: ring, host,
-    unequal, program (packets checked in the program's buffers, launches
-    whose last lane is live), and s, the seconds the checks took (kept out
-    of the walls)."""
+    unequal (after _read_spy), program (packets checked in the program's
+    buffers, launches whose last lane is live), and s, the host seconds the
+    checks took (kept out of the walls)."""
     import torch
 
-    tally = {"ring": 0, "host": 0, "unequal": 0, "program": 0, "s": 0.0}
+    tally = {"ring": 0, "host": 0, "unequal": 0, "program": 0, "s": 0.0, "bad": []}
     launch = fe._launch
 
-    def equal(a, b):
-        return all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    def unequal(a, b):
+        """A 0-dim bool on the device: whether the packets differ."""
+        if any(x.dtype != y.dtype or x.shape != y.shape for x, y in zip(a, b)):
+            return torch.ones((), dtype=torch.bool, device=fe.device)
+        return torch.stack([(x != y).any() for x, y in zip(a, b)]).any()
 
     def spied(ests, flags):
         live = [e for e, f in zip(ests, flags) if f > 0]
@@ -694,17 +710,145 @@ def _spy_packets(fe) -> dict:
             t_ref = float(np.float32(e.t - fe._t0))
             xs, ys, ts, _ = fe.store.slice_abs(beg, end)
             host = fe._packet(xs, ys, ts, t_ref)
-            tally["unequal"] += not equal(fe._ring_packet(beg, end - beg, t_ref), host)
+            tally["bad"].append(unequal(fe._ring_packet(beg, end - beg, t_ref), host))
         if flags[-1] > 0:  # the program's buffers hold the last lane's packet
             beg, end = live[-1].span
             xs, ys, ts, _ = fe.store.slice_abs(beg, end)
             host = fe._packet(xs, ys, ts, float(np.float32(live[-1].t - fe._t0)))
-            tally["unequal"] += not equal(fe._packets.packet, host)
+            tally["bad"].append(unequal(fe._packets.packet, host))
             tally["program"] += 1
         tally["s"] += time.perf_counter() - t0
 
     fe._launch = spied
     return tally
+
+
+def _read_spy(tally: dict) -> dict:
+    """Read a _spy_packets tally's comparisons (one read, after the run)."""
+    import torch
+
+    bad, tally["bad"] = tally["bad"], []
+    tally["unequal"] += int(torch.stack(bad).sum()) if bad else 0
+    return tally
+
+
+def _spy_steps(be) -> list:
+    """The indices of the windows each Backend.step() returns, in order."""
+    returned = []
+    step = be.step
+
+    def spied():
+        out = step()
+        returned.extend(r.index for r in out)
+        return out
+
+    be.step = spied
+    return returned
+
+
+def _site(frame, skip=()) -> str:
+    """'file:line function' of the first frame from ``frame`` outward whose
+    function is not in ``skip``, the file relative to the checkout."""
+    while frame.f_back is not None and frame.f_code.co_name in skip:
+        frame = frame.f_back
+    path = os.path.relpath(frame.f_code.co_filename, REPO)
+    return f"{path}:{frame.f_lineno} {frame.f_code.co_name}"
+
+
+class SyncAudit:
+    """Counts the host's waits for the card over a block, by call site.
+    "syncs": every call that synchronizes the host with the card as
+    torch.cuda.set_sync_debug_mode("warn") reports it (a blocking copy,
+    .item(), a stream or device synchronize), apart from those made while a
+    device program captures its graphs (its first run): the waits the loop
+    should not have. "waits": the explicit waits of the loop, each
+    device_loop Result's event (one per launch fetched; a fused fetch waits
+    on several). Counts nothing on the CPU."""
+
+    _WAIT_FRAMES = ("_wait", "fetch_all", "fetch", "finalize_batch", "_fetch", "counted_wait")
+
+    def __init__(self, device: str = "cuda"):
+        self.on = device == "cuda"
+        self.syncs, self.waits, self.capturing = {}, {}, 0
+
+    def __enter__(self):
+        if not self.on:
+            return self
+        import warnings
+
+        from cmax_slam_tpu_torch.ops import device_loop
+
+        audit = self
+        self._capture, self._wait = device_loop.Program._capture, device_loop.Result._wait
+        capture, wait = self._capture, self._wait
+
+        def counted_capture(prog):
+            audit.capturing += 1
+            try:
+                return capture(prog)
+            finally:
+                audit.capturing -= 1
+
+        def counted_wait(res):
+            if res._event is not None:
+                site = _site(sys._getframe(1), self._WAIT_FRAMES)
+                audit.waits[site] = audit.waits.get(site, 0) + 1
+            return wait(res)
+
+        device_loop.Program._capture, device_loop.Result._wait = counted_capture, counted_wait
+        self._warnings = warnings.catch_warnings()
+        self._warnings.__enter__()
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" not in str(message):
+                return shown(message, category, filename, lineno, file, line)
+            if audit.capturing:
+                return None
+            site = f"{os.path.relpath(filename, REPO)}:{lineno}"
+            frame = sys._getframe(1)  # the repository's innermost frame below the call
+            while frame is not None and not (
+                    frame.f_code.co_filename.startswith(REPO)
+                    and frame.f_code.co_filename != filename
+                    and frame.f_code.co_name not in ("show", "counted_capture")):
+                frame = frame.f_back
+            if frame is not None:
+                site += " <- " + _site(frame)
+            audit.syncs[site] = audit.syncs.get(site, 0) + 1
+            return None
+
+        self._set_mode("warn")  # the switch itself synchronizes: not counted
+        warnings.showwarning = show
+        return self
+
+    @staticmethod
+    def _set_mode(mode: str) -> None:
+        import warnings
+
+        import torch
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.cuda.set_sync_debug_mode(mode)
+
+    def __exit__(self, *exc):
+        if not self.on:
+            return False
+        from cmax_slam_tpu_torch.ops import device_loop
+
+        self._warnings.__exit__(*exc)
+        self._set_mode("default")
+        device_loop.Program._capture, device_loop.Result._wait = self._capture, self._wait
+        return False
+
+    def report(self, strides: int, windows: int) -> dict:
+        """Totals, per front-end launch and per completed window, by site."""
+        syncs, waits = sum(self.syncs.values()), sum(self.waits.values())
+        return {"syncs": syncs, "syncs_per_stride": syncs / max(strides, 1),
+                "syncs_per_window": syncs / max(windows, 1), "event_waits": waits,
+                "syncs_by_site": dict(sorted(self.syncs.items(), key=lambda kv: -kv[1])),
+                "event_waits_by_site": dict(sorted(self.waits.items(), key=lambda kv: -kv[1]))}
 
 
 def _push(slam, ev, lo: int, hi: int, chunk: int = 39_000) -> None:
@@ -757,13 +901,16 @@ def _spy_fwd_shapes(tally: dict, cam_hw, pano_hw):
 
 
 def run_system(device: str = "cuda", overrides=None, label: str = "system",
-               duration: float = 2.0, shapes: dict | None = None):
+               duration: float = 2.0, shapes: dict | None = None, audit: bool = False):
     """Phase 4 (and the cubic phase): the stock preset, with ``overrides``
     (dotted config keys), through the public entry points. Returns
     (launches during the run, {check: passed}, the (T, 4) ang_vel_log, the
-    wall in s without the ring-packet checks, the CMaxSLAM). ``shapes``, if
-    given, is filled with the run's K1 launches by shape bucket
-    (``_spy_fwd_shapes``)."""
+    wall in s without the ring-packet checks, the CMaxSLAM, _graph_stats).
+    The wall runs from the first push to the last result on the host: the
+    pushes, the flush of the window in flight and the ang-vel log.
+    ``shapes``, if given, is filled with the run's K1 launches by shape
+    bucket (``_spy_fwd_shapes``); ``audit`` counts the host's waits in the
+    push loop (SyncAudit)."""
     import torch
     from cmax_slam_tpu_torch.config import ijrr_config, replace
     from cmax_slam_tpu_torch.ops import cuda_iwe
@@ -778,6 +925,7 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
     cfg = replace(ijrr_config(), **overrides)
     slam = CMaxSLAM(calib, cfg, device=device)
     tally = _spy_packets(slam.frontend)
+    returned = _spy_steps(slam.backend)
     pano = cfg.backend.pano_map
     restore = (_spy_fwd_shapes(shapes, (calib.height, calib.width),
                                (pano.pano_height, pano.pano_width))
@@ -787,22 +935,27 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    sync_audit = SyncAudit(device if audit else "cpu")
     t0 = time.perf_counter()
     try:
-        _push(slam, ev, 0, n)
-        slam.flush()
+        with sync_audit:
+            _push(slam, ev, 0, n)
+        loop = dict(slam.metrics.counters)  # the push loop's counts alone
+        loop["windows_completed"] = len(slam.backend.results)
+        tail = slam.backend.flush()
+        log = slam.ang_vel_log
         if device == "cuda":
             torch.cuda.synchronize()
     finally:
         restore()
     wall = time.perf_counter() - t0 - tally["s"]
+    _read_spy(tally)
     launches = _launches()
-    graphs = _graph_stats(slam, device)
+    graphs = _graph_stats(slam, device, loop, sync_audit)
 
     be = slam.backend
     wins = slam.window_results()
     n_ba = sum(w.ran_ba for w in wins)
-    log = slam.ang_vel_log
     rms, rms_raw = _rms_vs_truth(be.traj, omega)
     counters = slam.metrics.counters
     timers = {k: round(v.total, 3) for k, v in slam.metrics.timers.items()}
@@ -814,6 +967,12 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
          f"from the host store {tally['host']}; timers_s "
          f"{json.dumps(timers)}; counters {json.dumps(dict(counters))}; launches {launches}; "
          f"crop shapes {sorted(be._crop_shapes)}; graphs {json.dumps(graphs)}")
+    _log(f"{label}: waits in the push loop: front-end {graphs['frontend_waits']} "
+         f"({graphs['host_reads_per_packet']:.4f} per packet, "
+         f"{graphs['host_reads_per_stride']:.4f} per launch), back-end "
+         f"{graphs['backend_waits']} ({graphs['host_reads_per_window']:.4f} per completed "
+         f"window, {graphs['resolves']} synchronous re-solves); sync-debug "
+         f"{json.dumps(graphs.get('audit'))}")
     checks = {
         "state on the device": all(t.device.type == device for t in (
             be.IG, be.update_times, be.lut_dev, slam.frontend.lut)),
@@ -822,6 +981,8 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
         "finite omega log": log.shape[1] == 4 and bool(np.isfinite(log).all()),
         "RMS < 0.3 deg": rms < 0.3,
         "spline order": be.traj.order == (4 if overrides.get(CUBIC_KEY) == 3 else 2),
+        "each window returned once by step/flush": (
+            returned + ([tail.index] if tail is not None else []) == [w.index for w in wins]),
     }
     checks |= _graph_checks(graphs, cfg, device)
     if cfg.frontend.device_store:  # the stock schedule gathers from the ring
@@ -830,52 +991,68 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
         checks["ring packets torch.equal host packets"] = tally["unequal"] == 0
     else:
         checks["no ring packets"] = tally["ring"] == 0 and "frontend.ring_packets" not in counters
-    return launches, checks, log, wall, slam
+    return launches, checks, log, wall, slam, graphs
 
 
-def _graph_stats(slam, device: str) -> dict:
+def _graph_stats(slam, device: str, loop: dict, sync_audit=None) -> dict:
     """What the run's device programs did: graph launches per program, loop
-    predicate executions, captures and their seconds, host reads per packet
-    and per window, peak device memory. The counts were reset with the
-    launches (_reset_launches)."""
+    predicate executions, captures and their seconds, the waits of the push
+    loop (``loop``: its counters) per packet, per front-end launch and per
+    completed window, the synchronous re-solves, peak device memory, and
+    the SyncAudit's counts. The counts were reset with the launches
+    (_reset_launches); the estimates are finalized."""
     import torch
     from cmax_slam_tpu_torch.ops import device_loop
 
-    c = slam.metrics.counters
+    be = slam.backend
     packets = sum(1 for e in slam.frontend.estimates if e.iters > 0)
-    windows = sum(w.ran_ba for w in slam.window_results())
-    return {
+    windows = loop["windows_completed"]
+    launches = loop.get("frontend.launches", 0)
+    resolves = (loop.get("backend.crop_escapes", 0)
+                + sum(r.ran_ba for r in be.bootstrap_results))
+    out = {
         "runs": dict(device_loop.RUNS), "pred": device_loop.LAUNCHES["pred"],
         "captures": dict(device_loop.CAPTURES),
-        "frontend_launches": c.get("frontend.launches", 0),
-        "frontend_host_reads": c.get("frontend.host_reads", 0),
-        "stride_launches": c.get("frontend.stride_launches", 0),
-        "host_reads_per_packet": c.get("frontend.host_reads", 0) / max(packets, 1),
-        "host_reads_per_window": c.get("backend.host_reads", 0) / max(windows, 1),
-        "solved_packets": packets, "ba_windows": windows,
+        "frontend_launches": launches,
+        "stride_launches": loop.get("frontend.stride_launches", 0),
+        "frontend_waits": loop.get("frontend.host_reads", 0),
+        "backend_waits": loop.get("backend.host_reads", 0),
+        "host_reads_per_packet": loop.get("frontend.host_reads", 0) / max(packets, 1),
+        "host_reads_per_stride": loop.get("frontend.host_reads", 0) / max(launches, 1),
+        "host_reads_per_window": loop.get("backend.host_reads", 0) / max(windows, 1),
+        "resolves": resolves, "windows_completed_in_loop": windows,
+        "solved_packets": packets, "ba_windows": sum(w.ran_ba for w in be.results),
         "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else 0.0),
     }
+    if sync_audit is not None and sync_audit.on:
+        out["audit"] = sync_audit.report(launches, windows)
+    return out
 
 
 def _graph_checks(graphs: dict, cfg, device: str) -> dict:
-    """Every solve of the run went through captured graphs (on the card),
-    with one host read per front-end launch and at most two per window (the
-    packed readback, and a full-panorama re-solve's on an escape); strides
-    read less than once per packet."""
+    """Every solve of the run went through captured graphs (on the card);
+    the push loop's front-end waited no time, and its back-end at most once
+    per completed window, besides the stream's start (the first estimate,
+    the integrator's anchor, and the first window's estimates, fetched
+    before any window is in flight) and the synchronous re-solves; with the
+    sync audit, no hidden wait outside the captures."""
     runs = graphs["runs"]
     out = {
-        "one host read per front-end launch": (
-            graphs["frontend_host_reads"] == graphs["frontend_launches"] > 0),
-        "<= 2 host reads per window": graphs["host_reads_per_window"] <= 2,
+        "front-end: no wait in the loop": (
+            graphs["frontend_waits"] == 0 and graphs["frontend_launches"] > 0),
+        "back-end: <= 1 wait per completed window + 2 at the start + re-solves": (
+            graphs["backend_waits"]
+            <= graphs["windows_completed_in_loop"] + 2 + graphs["resolves"]),
     }
+    if "audit" in graphs:
+        out["no synchronizing call in the loop outside captures"] = graphs["audit"]["syncs"] == 0
     if device == "cuda":
         out["front-end solves ran as graphs"] = (
             runs.get("frontend", 0) == graphs["frontend_launches"] > 0)
         out["window solves ran as graphs"] = (
             runs.get("backend.crop", 0) + runs.get("backend.full", 0) > 0)
     if cfg.frontend.batch_sweeps > 0:
-        out["strides: < 1 host read per packet"] = (
-            graphs["stride_launches"] > 0 and graphs["host_reads_per_packet"] < 1)
+        out["strides launched"] = graphs["stride_launches"] > 0
     return out
 
 
@@ -885,7 +1062,8 @@ def run_ring_wrap(device: str = "cuda", duration: float = 0.6, capacity: int = 1
     resumed in a fresh CMaxSLAM: 39 000-event pushes split into appends
     that wrap, packets that wrap, a resync of more events than the ring
     holds, and packets the ring has lapped gathered from the host store.
-    Every ring packet must be torch.equal to its host packet. Returns
+    Every ring packet must be torch.equal to its host packet. The host's
+    waits in both runs are counted (SyncAudit) and printed. Returns
     (launches, {check: passed})."""
     from cmax_slam_tpu_torch.config import ijrr_config, replace
     from cmax_slam_tpu_torch.ops import cuda_iwe
@@ -896,24 +1074,31 @@ def run_ring_wrap(device: str = "cuda", duration: float = 0.6, capacity: int = 1
     cfg = replace(ijrr_config(), **{"frontend.device_store_capacity": capacity})
     _reset_launches()
     t0 = time.perf_counter()
+    audit = SyncAudit(device)
     first = CMaxSLAM(calib, cfg, device=device)
     tallies = [_spy_packets(first.frontend)]
     cut = (n // 2) // chunk * chunk
-    _push(first, ev, 0, cut, chunk)
-    with tempfile.TemporaryDirectory(prefix="cmax_ring_") as tmp:
-        path = os.path.join(tmp, "cut.npz")
-        first.save_checkpoint(path)
-        resumed = CMaxSLAM(calib, cfg, device=device)
-        resumed.load_checkpoint(path)
-    ring = resumed.frontend._ring
-    window = resumed.store.total - resumed.store.base
-    tallies.append(_spy_packets(resumed.frontend))
-    _push(resumed, ev, resumed.raw_count, n, chunk)
+    with audit:
+        _push(first, ev, 0, cut, chunk)
+        with tempfile.TemporaryDirectory(prefix="cmax_ring_") as tmp:
+            path = os.path.join(tmp, "cut.npz")
+            first.save_checkpoint(path)
+            resumed = CMaxSLAM(calib, cfg, device=device)
+            resumed.load_checkpoint(path)
+        ring = resumed.frontend._ring
+        window = resumed.store.total - resumed.store.base
+        tallies.append(_spy_packets(resumed.frontend))
+        _push(resumed, ev, resumed.raw_count, n, chunk)
+    resumed.flush()
+    log = np.concatenate([first.ang_vel_log, resumed.ang_vel_log])
     wall = time.perf_counter() - t0
     launches = _launches()
-    tally = {k: sum(t[k] for t in tallies) for k in tallies[0]}
-    log = np.concatenate([first.ang_vel_log, resumed.ang_vel_log])
+    tally = {k: sum(_read_spy(t)[k] for t in tallies) for k in ("ring", "host", "unequal")}
     err = np.linalg.norm(log[:, 1:] - omega, axis=1)
+    strides = sum(s.metrics.counters.get("frontend.launches", 0) for s in (first, resumed))
+    _log("ring_wrap: host waits (both runs, the save and the load included) "
+         + json.dumps(audit.report(strides, len(resumed.backend.results)
+                                   + len(first.backend.results))))
     _log(f"ring_wrap: ring of {ring.capacity} events, {n} events over {duration} s cut at "
          f"{cut}; resync of {window} stored events; packets {len(log)}: from the ring "
          f"{tally['ring']} (unequal to the host packet {tally['unequal']}), lapped and "
@@ -949,6 +1134,7 @@ def packet_solver(slam, ev, k: int):
         fe.omega = omega0
         fe._t_packet = est.t
         e = fe._process_packet(beg, end)
+        fe.finalize_batch([e])
         return e.omega, e.cost, e.iters
 
     return solve
@@ -1034,27 +1220,36 @@ def run_resume(device: str = "cuda", duration: float = 1.0):
     n, chunk = len(ev.ts), 39_000
     _reset_launches()
     t0 = time.perf_counter()
-    whole = CMaxSLAM(calib, ijrr_config(), device=device)
-    _push(whole, ev, 0, n, chunk)
-    cut_run = CMaxSLAM(calib, ijrr_config(), device=device)
-    cut = 0
-    while cut_run.backend.count_window < 2 and cut < n:
-        _push(cut_run, ev, cut, cut + chunk, chunk)
-        cut = min(cut + chunk, n)
-    with tempfile.TemporaryDirectory(prefix="cmax_resume_") as tmp:
-        path = os.path.join(tmp, "cut.npz")
-        cut_run.save_checkpoint(path)
-        resumed = CMaxSLAM(calib, ijrr_config(), device=device)
-        resumed.load_checkpoint(path)
-    windows_at_cut = cut_run.backend.count_window
-    ring = resumed.frontend._ring
-    resynced = ring.hi == resumed.store.total and resumed.store.base < cut
-    _push(resumed, ev, resumed.raw_count, n, chunk)
-    _push(cut_run, ev, cut, n, chunk)  # the cut run goes on as if never saved
+    audit = SyncAudit(device)
+    with audit:
+        whole = CMaxSLAM(calib, ijrr_config(), device=device)
+        _push(whole, ev, 0, n, chunk)
+        cut_run = CMaxSLAM(calib, ijrr_config(), device=device)
+        cut = 0
+        while cut_run.backend.count_window < 2 and cut < n:
+            _push(cut_run, ev, cut, cut + chunk, chunk)
+            cut = min(cut + chunk, n)
+        with tempfile.TemporaryDirectory(prefix="cmax_resume_") as tmp:
+            path = os.path.join(tmp, "cut.npz")
+            cut_run.save_checkpoint(path)
+            resumed = CMaxSLAM(calib, ijrr_config(), device=device)
+            resumed.load_checkpoint(path)
+        windows_at_cut = cut_run.backend.count_window
+        ring = resumed.frontend._ring
+        resynced = ring.hi == resumed.store.total and resumed.store.base < cut
+        _push(resumed, ev, resumed.raw_count, n, chunk)
+        _push(cut_run, ev, cut, n, chunk)  # the cut run goes on as if never saved
+    runs = (whole, cut_run, resumed)
+    for s in runs:
+        s.flush()
+        s.ang_vel_log  # finalizes every estimate: their launches are counted
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches()
+    _log("resume: host waits (three runs, the save and the load included) " + json.dumps(
+        audit.report(sum(s.metrics.counters.get("frontend.launches", 0) for s in runs),
+                     sum(len(s.backend.results) for s in runs))))
 
     def gap(a, c):
         ta, tc = a.backend.traj, c.backend.traj
@@ -1136,12 +1331,14 @@ def run_cli(device: str = "cuda", duration: float = 2.0):
                 render_launches[0] += cuda_iwe.LAUNCHES["fwd"] - before
 
         walls = {}
+        audit = SyncAudit(device)
         Frontend.render_iwe_pair = counted_render
         try:
             _reset_launches()
             t0 = time.perf_counter()
-            rc = cli.main(argv("full", "--refine-passes", "1", "--save-iwe-every", "50",
-                               "--save-maps-every", "6"))
+            with audit:
+                rc = cli.main(argv("full", "--refine-passes", "1", "--save-iwe-every", "50",
+                                   "--save-maps-every", "6"))
             walls["full"] = time.perf_counter() - t0
             launches = _launches()
         finally:
@@ -1169,6 +1366,9 @@ def run_cli(device: str = "cuda", duration: float = 2.0):
         t_res, q_res = read_tum_trajectory(os.path.join(tmp, "resume", "trajectory_tum.txt"))
         stats_res = json.load(open(os.path.join(tmp, "resume", "stats.json")))
         timers = {k: round(v["total_s"], 3) for k, v in stats["metrics"]["timers"].items()}
+        _log("cli: host waits of the full run (the renders, checkpoints and refine included) "
+             + json.dumps(audit.report(stats["metrics"]["counters"].get("frontend.launches", 0),
+                                       stats["windows"])))
         _log(f"cli: full run rc {rc} wall {walls['full']:.2f} s "
              f"(events_per_second {stats['events_per_second']:.0f}, "
              f"{stats['events']} events, {stats['windows']} windows, "
@@ -1401,8 +1601,13 @@ def check_loop_pred() -> dict:
     its gates read on the host; the same counts and the same executions
     (max_abs_err 0). Times per iteration: the graph (predicate, conditional
     node and a one-kernel body) against the host gate (the same body
-    launched from Python and one flag read), for 1000 iterations."""
+    launched from Python and one flag read), for 1000 iterations, and the
+    predicate kernel's own device time (torch.profiler, mean over its
+    executions in three runs; None if the profiler records no kernel inside
+    the graph). Then three launches of one program queued behind a sleeping
+    kernel, in flight together: each must fetch its own number."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from cmax_slam_tpu_torch.ops import device_loop
 
     dev = torch.device("cuda")
@@ -1433,20 +1638,44 @@ def check_loop_pred() -> dict:
 
     prog = device_loop.Program(build, 2, dev, name="loop_check")
     before = device_loop.LAUNCHES["pred"]
-    got = prog.run()
+    got = prog.run().fetch()
     preds = device_loop.LAUNCHES["pred"] - before
     prog.build_fn(device_loop.Eager())
     plain = prog.out.cpu().numpy()
     expect_preds = (n_it + 1) + n_it  # the WHILE's n_it + 1 tests, the IF's n_it
     err = float(np.abs(got - plain).max())
-    ms = _time_ms(prog.run, reps=5) / n_it
+    ms = _time_ms(lambda: prog.run().fetch(), reps=5) / n_it
     plain_ms = _time_ms(lambda: prog.build_fn(device_loop.Eager()), reps=2) / n_it
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            prog.run().fetch()
+        torch.cuda.synchronize()
+    k = [e for e in prof.key_averages() if "loop_pred" in e.key and e.count]
+    kernel_ms = (sum(e.self_device_time_total for e in k) / sum(e.count for e in k) / 1e3
+                 if k else None)
+
+    reg = torch.zeros(1, device=dev)
+
+    def count_build(b):
+        b.seg(lambda: reg.add_(1.0))
+        b.seg(lambda: counter.out.copy_(reg))
+
+    counter = device_loop.Program(count_build, 1, dev, name="in_flight_check")
+    counter.run().fetch()  # captures
+    torch.cuda._sleep(200_000_000)  # ~0.1 s: the launches below queue behind it
+    flight = [counter.run() for _ in range(3)]
+    queued = not any(r.fetched for r in flight) and not flight[0]._event.query()
+    own = [float(v[0]) for v in device_loop.fetch_all(flight[::-1])][::-1]
+    in_flight_ok = queued and own[1] == own[0] + 1 and own[2] == own[1] + 1
     _log(f"loop predicate: {n_it} iterations, graph {got.tolist()} host gate {plain.tolist()}, "
          f"predicate executions {preds} (expected {expect_preds}); per iteration graph "
-         f"{ms * 1e3:.3f} us, host gate {plain_ms * 1e3:.3f} us")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         f"{ms * 1e3:.3f} us, host gate {plain_ms * 1e3:.3f} us; predicate kernel device time "
+         f"{'not recorded' if kernel_ms is None else f'{kernel_ms * 1e3:.3f} us'}; three "
+         f"launches in flight (queued {queued}) fetched {own}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "kernel_device_ms": kernel_ms,
             "bound_ms": 8 / HBM_BYTES_PER_S * 1e3, "ok": err == 0 and preds == expect_preds,
-            "executions": preds}
+            "in_flight_ok": in_flight_ok, "executions": preds}
 
 
 def check_captured_objectives(slam, ev) -> dict:
@@ -1486,7 +1715,7 @@ def check_captured_objectives(slam, ev) -> dict:
             b.seg(seg)
 
         prog = device_loop.Program(build, 1 + D, "cuda", name=f"objective_{name}")
-        got = prog.run()
+        got = prog.run().fetch()
         vote = mod.vote
         mod.vote = scatter.bilinear_accumulate  # the plain version, on the card
         try:
@@ -1498,7 +1727,7 @@ def check_captured_objectives(slam, ev) -> dict:
         g_err = np.abs(got[1:] - ref[1:]).max()
         g_tol = 2e-3 * np.abs(ref[1:]).max() + 2e-6
         buf = {"f_rel_err": float(f_err), "g_abs_err": float(g_err), "g_tol": float(g_tol),
-               "graph_ms": _time_ms(prog.run, reps=20),
+               "graph_ms": _time_ms(lambda: prog.run().fetch(), reps=20),
                "eager_ms": _time_ms(lambda: vg(x), reps=20)}
         ok &= f_err < 1e-5 and g_err < g_tol
         out[name] = buf
@@ -1610,10 +1839,12 @@ def main() -> int:
          f"{device_loop.build_job()[2].name})")
     kernels = check_kernels(np.random.default_rng(0))
     pred = check_loop_pred()
-    _require("loop predicate", {"graph and host gate agree": pred["ok"]})
+    _require("loop predicate", {"graph and host gate agree": pred["ok"],
+                                "launches in flight fetch their own numbers":
+                                    pred["in_flight_ok"]})
     fwd_buckets = {}
-    launches, checks, seq_log, wall, slam = run_system(shapes=fwd_buckets)
-    graphs = {"system": _graph_stats(slam, "cuda")}
+    launches, checks, seq_log, wall, slam, stats = run_system(shapes=fwd_buckets, audit=True)
+    graphs = {"system": stats}
     _log("system: K1 launches by shape bucket "
          + json.dumps(dict(sorted(fwd_buckets.items(), key=lambda kv: -kv[1]["launches"]))))
     checks["K1 launches counted by shape"] = (
@@ -1623,16 +1854,15 @@ def main() -> int:
     objectives = check_captured_objectives(slam, ev)
     _require("captured objectives", {k: v for k, v in objectives.items() if k != "_"})
     _require("host loop", compare_host_loop(slam, ev))
-    host_launches, checks, _, host_wall, host_slam = run_system(overrides=HOST_SCHEDULE,
-                                                                label="system_host")
-    graphs["system_host"] = _graph_stats(host_slam, "cuda")
+    host_launches, checks, _, host_wall, host_slam, graphs["system_host"] = run_system(
+        overrides=HOST_SCHEDULE, label="system_host", audit=True)
     _require("system_host", checks)
     _require("schedules", compare_schedules(slam, wall, host_slam, host_wall))
     del slam, host_slam
     ring_launches, checks = run_ring_wrap()
     _require("ring_wrap", checks)
-    cubic_launches, checks, _, _, cubic_slam = run_system(overrides=CUBIC, label="cubic")
-    graphs["cubic"] = _graph_stats(cubic_slam, "cuda")
+    cubic_launches, checks, _, _, cubic_slam, graphs["cubic"] = run_system(
+        overrides=CUBIC, label="cubic", audit=True)
     del cubic_slam
     _require("cubic", checks)
     resume_launches, checks = run_resume()
@@ -1715,6 +1945,7 @@ def main() -> int:
         "launches": graphs["system"]["pred"],
         "launches_by_path": {p: g["pred"] for p, g in graphs.items()},
         "max_abs_err": pred["max_abs_err"], "ms": pred["ms"], "plain_ms": pred["plain_ms"],
+        "kernel_device_ms": pred["kernel_device_ms"],
         "bound_ms": pred["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "executions_checked": pred["executions"],
         "graph_runs_by_path": {p: g["runs"] for p, g in graphs.items()}})

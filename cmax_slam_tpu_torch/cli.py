@@ -189,6 +189,7 @@ def main(argv=None) -> int:
             t_first = float(chunk[2][0])
         ests = slam.push_events(*chunk)
         if iwe_every > 0:
+            slam.frontend.finalize_batch(ests)  # the renders read their omega
             for est in ests:
                 iwe_done += 1
                 if (iwe_done - 1) % iwe_every or est.num_events == 0:
@@ -213,7 +214,7 @@ def main(argv=None) -> int:
                 os.path.join(args.out_dir, f"pano_map_{maps_done:04d}.png"),
                 slam.backend.render_map(),
             )
-    slam.flush()
+    slam.flush()  # join the back-end's window in flight
     if args.refine_passes > 0 and slam.backend is not None:
         slam.refine(
             lambda: iter_events(args.events, args.chunk_size, args.max_events),

@@ -21,9 +21,11 @@ Scheduling:
   _build_packet_solver and _build_stride_solver): the packets of one launch
   are solved one after another on the device, each warm-started from the
   one before, with the coarse and fine CG loops, their line searches and
-  the warm-start chain inside one CUDA graph; the host reads one (P, 5)
-  ``[omega, cost, iters]`` matrix and the final warm start per launch
-  (``frontend.host_reads``). On the CPU the same program runs eagerly.
+  the warm-start chain inside one CUDA graph. A launch reads nothing on the
+  host: the warm start stays on the device from launch to launch, and each
+  estimate holds its launch's handle (``AngVelEstimate.packed``) until it is
+  finalized, one wait for many launches (``finalize_batch``,
+  ``frontend.host_reads``). On the CPU the same program runs eagerly.
 - ``batch_sweeps`` > 0: when at least 2 packets are ready at one push (a
   stride), all of them go to one launch, padded to the JAX package's lane
   buckets: a live lane is solved, a degenerate lane returns zeros and
@@ -50,13 +52,21 @@ from .io import native
 from .io.devring import DeviceEventRing, _next_pow2
 from .io.events import EventStore
 from .ops import device_loop, optim, warp_local
-from .utils.device import resolve_device
+from .utils.device import resolve_device, to_device
 from .utils.metrics import Metrics, logger
 
 
 @dataclass
 class AngVelEstimate:
-    """One packet's angular-velocity estimate."""
+    """One packet's angular-velocity estimate.
+
+    In flight while ``packed`` is not None: the solve may still run on the
+    device, ``packed`` is (its launch's device_loop.Result, lane) and
+    ``omega``/``cost``/``iters`` hold placeholders (zeros). With
+    ``Frontend.auto_finalize`` (a front-end on its own) push_events returns
+    finalized estimates; in the system loop they finalize when the back-end
+    integrates them. Call ``Frontend.finalize_batch(ests)`` before reading
+    the fields of estimates you hold on to (the JAX package's contract)."""
 
     t: float
     omega: np.ndarray  # (3,) rad/s
@@ -64,6 +74,7 @@ class AngVelEstimate:
     iters: int
     num_events: int
     span: Tuple[int, int] = (0, 0)  # absolute event-store indices [beg, end)
+    packed: object = None
 
 
 class Frontend:
@@ -80,7 +91,7 @@ class Frontend:
         self.cam = cam
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.lut = torch.as_tensor(np.asarray(lut, np.float32), device=self.device)
+        self.lut = to_device(np.asarray(lut, np.float32), self.device)
         self.store = store if store is not None else EventStore()
         self.metrics = metrics if metrics is not None else Metrics()
 
@@ -98,12 +109,21 @@ class Frontend:
             self._ring = DeviceEventRing(_next_pow2(cap), cam.width, device=self.device)
 
         self._initialized = False
+        # Finalize estimates as push_events returns them; the system loop
+        # turns this off and lets the back-end finalize them in its fetch.
+        self.auto_finalize = True
         self._t0: float = 0.0  # stream epoch: all device times are t - _t0
         self._cursor: float = 0.0  # time_get_subset_
         self._t_packet: float = 0.0  # time_packet_
         self._next_check_abs = 0  # next absolute event index to scan for triggers
         self._pending: List[Tuple[int, int]] = []  # subset (beg, end) abs indices
-        self._omega = torch.zeros(3, dtype=torch.float32)  # warm start (ang_vel_), host
+        # Warm start (ang_vel_): on the device between launches. _carry is
+        # the latest launch's handle, whose out[-3:] is that value; None
+        # after a reset (a degenerate packet, the setter), when _omega_host
+        # holds it.
+        self._omega_dev = torch.zeros(3, dtype=torch.float32, device=self.device)
+        self._omega_host = np.zeros(3, np.float32)
+        self._carry: Optional[device_loop.Result] = None
         self.estimates: List[AngVelEstimate] = []
         self._packets: Optional["_PacketSolver"] = None  # the device program of the solves
 
@@ -138,12 +158,28 @@ class Frontend:
 
     @property
     def omega(self) -> np.ndarray:
-        """Current warm-start angular velocity."""
-        return self._omega.numpy().astype(np.float64)
+        """Current warm-start angular velocity. Finalizes the estimates in
+        flight first; the warm start comes with them (the latest launch's
+        carry), in the same wait."""
+        pend = [e for e in self.estimates if e.packed is not None]
+        extra = (self._carry,) if self._carry is not None else ()
+        vals = self.finalize_batch(pend, extra_handles=extra)
+        if vals:
+            return vals[0][-3:].astype(np.float64)
+        return self._omega_host.astype(np.float64)
 
     @omega.setter
     def omega(self, value) -> None:
-        self._omega = torch.as_tensor(np.asarray(value, np.float32))
+        self._omega_host = np.asarray(value, np.float32).reshape(3)
+        self._omega_dev = to_device(self._omega_host.copy(), self.device)
+        self._carry = None
+
+    def _reset_warm_start(self) -> None:
+        """A degenerate packet's reset (ang_vel_estimator.cpp:108-114), on
+        the device."""
+        self._omega_dev.zero_()
+        self._omega_host = np.zeros(3, np.float32)
+        self._carry = None
 
     # ------------------------------------------------------------------
     def push_events(self, xs, ys, ts, ps) -> List[AngVelEstimate]:
@@ -165,19 +201,41 @@ class Frontend:
         while self._pending and self.store.total > self._pending[0][1]:
             ready.append(self._pending.pop(0))
         if len(ready) >= 2 and self.cfg.batch_sweeps > 0:
-            return self._process_stride(ready)
-        return [self._process_packet(beg, end) for beg, end in ready]
+            out = self._process_stride(ready)
+        else:
+            out = [self._process_packet(beg, end) for beg, end in ready]
+        if self.auto_finalize:
+            self.finalize_batch(out)
+        return out
 
-    def finalize_batch(self, ests: List[AngVelEstimate]) -> List:
-        """Materialize in-flight estimates. Every port estimate is final when
-        it is returned (its launch's results are read before push_events
-        returns), so there is nothing to fetch; kept so that callers written
-        for the JAX front-end, which finalizes lazily, run unchanged."""
-        return []
+    def finalize_batch(self, ests: List[AngVelEstimate], extra_handles: tuple = (), *,
+                       counter: Optional[str] = "frontend.host_reads") -> List[np.ndarray]:
+        """Finalize the estimates in flight among ``ests`` with one wait for
+        every launch they come from and every device_loop.Result in
+        ``extra_handles`` (the back-end's window result rides the same
+        wait); returns the extras' values on the host. The wait, if there is
+        one, is counted under ``counter`` (None: the caller counts it)."""
+        pend = [e for e in ests if e.packed is not None]
+        launches = list({id(e.packed[0]): e.packed[0] for e in pend}.values())
+        handles = launches + list(extra_handles)
+        if not handles:
+            return []
+        if counter is not None and not all(h.fetched for h in handles):
+            self.metrics.count(counter)
+        vals = device_loop.fetch_all(handles)
+        rows = {id(h): v for h, v in zip(launches, vals)}
+        for e in pend:
+            launch, lane = e.packed
+            row = rows[id(launch)][5 * lane:5 * lane + 5]
+            e.omega = row[:3].astype(np.float64)
+            e.cost = float(row[3])
+            e.iters = int(row[4])
+            e.packed = None
+        return vals[len(launches):]
 
     def close(self) -> None:
-        """Kept for API symmetry with Backend.close(): nothing is in flight
-        and the front-end holds no background resources."""
+        """Kept for API symmetry with Backend.close(): the front-end holds no
+        background resources (estimates finalize on the caller's thread)."""
 
     def _scan_triggers(self) -> None:
         """Find subset-cursor crossings among newly stored events."""
@@ -223,7 +281,7 @@ class Frontend:
 
     def _packet(self, xs, ys, ts, t_ref: float) -> warp_local.EventPacket:
         """One packet gathered from the host store, padded to the static size."""
-        ev = torch.as_tensor(self._host_events(xs, ys, ts), device=self.device)
+        ev = to_device(self._host_events(xs, ys, ts), self.device)
         return self._assemble(ev[0], ev[1].view(torch.float32), len(ts), t_ref)
 
     def _ring_packet(self, beg: int, n: int, t_ref: float) -> warp_local.EventPacket:
@@ -258,11 +316,10 @@ class Frontend:
     def _process_packet(self, beg: int, end: int) -> AngVelEstimate:
         est, degenerate = self._next_packet(beg, end)
         if degenerate:
-            self._omega = torch.zeros(3, dtype=torch.float32)
+            self._reset_warm_start()
             return est
         self._launch([est], [1.0])
-        logger.debug("[front-end] packet t=%.4f n=%d iters=%d", est.t, est.num_events,
-                     est.iters)
+        logger.debug("[front-end] packet t=%.4f n=%d dispatched", est.t, est.num_events)
         return est
 
     def _process_stride(self, ready) -> List[AngVelEstimate]:
@@ -275,11 +332,11 @@ class Frontend:
             ests.append(est)
             flags.append(0.0 if degenerate else 1.0)
         if not any(flags):  # every packet degenerate: no solve, the warm start resets
-            self._omega = torch.zeros(3, dtype=torch.float32)
+            self._reset_warm_start()
             return ests
         pad = self._lane_bucket(len(ready)) - len(ready)
         self._launch(ests + [None] * pad, flags + [-1.0] * pad)
-        logger.debug("[front-end] stride of %d packets solved", len(ready))
+        logger.debug("[front-end] stride of %d packets dispatched", len(ready))
         return ests
 
     @staticmethod
@@ -291,10 +348,12 @@ class Frontend:
         return ((n + 7) // 8) * 8
 
     def _launch(self, ests, flags) -> None:
-        """Solve one launch's lanes (flag 1 live, 0 degenerate, -1 padding)
-        on the device and fill in the live estimates. Each live packet is
-        gathered from the ring when it is resident there, else from this
-        launch's upload of its events."""
+        """Dispatch one launch's lanes (flag 1 live, 0 degenerate, -1
+        padding) to the device; each live estimate keeps (the launch's
+        handle, its lane) in ``packed``, and the warm start for the next
+        launch stays on the device. Each live packet is gathered from the
+        ring when it is resident there, else from this launch's upload of
+        its events."""
         L, S = len(flags), self.packet_size
         lanes = np.zeros((L, 5), np.float64)  # [position, n, t_ref, flag, from ring]
         host = None
@@ -318,17 +377,15 @@ class Frontend:
             self.metrics.count("frontend.events", e.num_events)
         solver = self._solver(L)
         with self.metrics.timer("frontend.solve"), torch.no_grad():
-            rows, carry = solver.solve(lanes, self._omega, host)
-        self.metrics.count("frontend.host_reads")
+            handle = solver.solve(lanes, self._omega_dev, host)
+            self._omega_dev.copy_(solver.carry[0])
+        self._carry = handle
         self.metrics.count("frontend.launches")
         if L > 1:
             self.metrics.count("frontend.stride_launches")
-        self._omega = torch.as_tensor(carry)
-        for e, fl, row in zip(ests, flags, rows):
+        for i, (e, fl) in enumerate(zip(ests, flags)):
             if fl > 0:
-                e.omega = row[:3].astype(np.float64)
-                e.cost = float(row[3])
-                e.iters = int(row[4])
+                e.packed = (handle, i)
 
     def _solver(self, lanes: int) -> "_PacketSolver":
         """The program with room for ``lanes`` lanes (16 at first; a wider
@@ -342,7 +399,8 @@ class Frontend:
         """Zero-motion vs motion-compensated IWE side-by-side, normalized and
         inverted (publishEventImage, ang_vel_estimator.cpp:203-233). Both
         images come from one batched vote (K1 on the card) and one copy to
-        the host. None when the packet has already been retired."""
+        the host (a wait, counted). None when the packet has already been
+        retired."""
         from .utils.image import normalize_minmax
 
         xs, ys, ts, _ = self.store.slice_abs(beg, end)
@@ -350,9 +408,10 @@ class Frontend:
             return None
         packet = self._packet(xs, ys, ts, float(np.float32(0.5 * (ts[0] + ts[-1]) - self._t0)))
         omegas = torch.zeros((2, 3), dtype=torch.float32, device=self.device)
-        omegas[1] = torch.as_tensor(np.asarray(omega, np.float32), device=self.device)
+        omegas[1] = to_device(np.asarray(omega, np.float32), self.device)
         with torch.no_grad():
             imgs = warp_local.local_iwe(omegas, packet, self.cam, 0.0).cpu().numpy()
+        self.metrics.count("frontend.host_reads")
         stacked = np.concatenate([imgs[0], imgs[1]], axis=1)
         return 255.0 - normalize_minmax(stacked) * 255.0
 
@@ -463,16 +522,20 @@ class _PacketSolver:
         self.program = device_loop.Program(build, capacity * 5 + 3, dev, name="frontend")
         self.out = self.program.out
 
-    def solve(self, lanes: np.ndarray, omega0: torch.Tensor, host: Optional[np.ndarray]):
-        """Run one launch: ``lanes`` (L, 5) [position, n, t_ref, flag, from
-        ring], the warm start and, if any lane is gathered from the host, the
-        (2, L, S) events. Returns ((L, 5) rows, the next warm start (3,))."""
+    def solve(self, lanes: np.ndarray, omega0: torch.Tensor,
+              host: Optional[np.ndarray]) -> device_loop.Result:
+        """Launch one solve: ``lanes`` (L, 5) [position, n, t_ref, flag, from
+        ring], the warm start (a (3,) device tensor) and, if any lane is
+        gathered from the host, the (2, L, S) events; the uploads are staged
+        (utils.device.to_device). Returns the launch's handle: lane i's
+        [omega, cost, iters] at ``out[5i:5i+5]``, the next warm start at
+        ``out[-3:]`` (and in ``carry`` until the next launch)."""
         L = len(lanes)
-        self.lanes_in[:L].copy_(torch.from_numpy(lanes))
+        dev = self.lanes_in.device
+        self.lanes_in[:L].copy_(to_device(lanes, dev))
         self.count_in.fill_(L)
         self.omega_in.copy_(omega0.reshape(1, 3))
         if host is not None:
             self.host_in[:, :host.shape[1] * host.shape[2]].copy_(
-                torch.from_numpy(host.reshape(2, -1)))
-        out = self.program.run()
-        return out[:L * 5].reshape(L, 5), out[-3:].astype(np.float32)
+                to_device(host.reshape(2, -1), dev))
+        return self.program.run()

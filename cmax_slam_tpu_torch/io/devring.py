@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import to_device
+
 
 def _next_pow2(n: int) -> int:
     p = 1
@@ -66,14 +68,15 @@ class DeviceEventRing:
             self._append_one(xs[off:off + half], ys[off:off + half], ts_rel[off:off + half])
 
     def _append_one(self, xs, ys, ts_rel) -> None:
-        """One host-to-device copy of both fields, then an in-place write of
+        """One host-to-device copy of both fields (staged, so the host does
+        not wait for the solves queued before it), then an in-place write of
         the ring (two slice copies where the chunk wraps)."""
         n = len(ts_rel)
         host = np.empty((2, n), np.int32)
         np.add(np.multiply(np.asarray(ys, np.int32), self.img_width, dtype=np.int32),
                np.asarray(xs, np.int32), out=host[0])
         host[1] = np.asarray(ts_rel, np.float32).view(np.int32)
-        dev = torch.from_numpy(host).to(self.device)
+        dev = to_device(host, self.device)
         idx, ts = dev[0], dev[1].view(torch.float32)
         pos = self.hi & (self.capacity - 1)
         first = min(n, self.capacity - pos)

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import to_device
+
 # Above this many pixels the blur is shift-and-add instead of band matmuls
 # (the JAX package's threshold, cmax_slam_tpu/ops/blur.py:74).
 SHIFT_ADD_MIN_PIXELS = 1 << 21
@@ -73,7 +75,7 @@ def _blur_matrix(size: int, sigma: float) -> np.ndarray:
 @functools.lru_cache(maxsize=32)
 def _blur_tensor(size: int, sigma: float, device: str) -> torch.Tensor:
     """The band matrix resident on ``device`` (uploaded once per shape)."""
-    return torch.as_tensor(_blur_matrix(size, sigma), device=device)
+    return to_device(_blur_matrix(size, sigma), device)
 
 
 def gaussian_blur(image: torch.Tensor, sigma: float) -> torch.Tensor:

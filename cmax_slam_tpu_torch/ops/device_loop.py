@@ -13,24 +13,31 @@ A program is described once by a ``build(b)`` function over static buffers
   non-zero; the body must rewrite ``flag``, and ``trips``, where given, is
   the most iterations the loop can run.
 
-``Program.run()`` executes it and reads its ``out`` buffer once. On the CPU
-every run interprets ``build`` with ``Eager``, whose gates read their flag on
-the host, as a host loop does. On a CUDA device the first run captures every
-segment into a CUDA graph of its own (torch.cuda.CUDAGraph(keep_graph=True),
-after one warm-up run on a side stream, all graphs of the program in one
-private memory pool of its own) and csrc/loop.cu joins them into one graph: a WHILE node
-per ``repeat`` and an IF node per ``when``, each behind the loop predicate
-kernel that reads the flag on the device. Every later run is one graph
-launch and one copy to the host. A step met again (the same bound
-method: the bracket and secant steps, a restarted solve) reuses its
-capture as another child node. A capture or launch that fails raises;
-nothing falls back to the eager form.
+``Program.run()`` launches it and returns a ``Result``, a handle on that
+launch's ``out``; ``Result.fetch()`` (or ``fetch_all`` for many handles)
+waits for it on the host. On the CPU every run interprets ``build`` with
+``Eager``, whose gates read their flag on the host, as a host loop does, and
+returns a Result that is already complete. On a CUDA device the first run
+captures every segment into a CUDA graph of its own
+(torch.cuda.CUDAGraph(keep_graph=True), after one warm-up run on a side
+stream, all graphs of the program in one private memory pool of its own) and
+csrc/loop.cu joins them into one graph: a WHILE node per ``repeat`` and an IF
+node per ``when``, each behind the loop predicate kernel that reads the flag
+on the device. Every later run is one graph launch, then one copy of ``out``
+and the counters into a pinned host slot of that launch's own, behind a CUDA
+event: the host goes on at once, and several launches of one program may be
+in flight, each fetching its own numbers (the program's buffers hold only
+the last launch's). A step met again (the same bound method: the bracket
+and secant steps, a restarted solve) reuses its capture as another child
+node. A capture or launch that fails raises; nothing falls back to the
+eager form.
 
 Counts. The predicate adds one to its node's execution counter each time the
 body runs; the counters travel to the host with ``out`` in the same copy.
-Each kernel launch captured in a segment (ops/cuda_iwe.py records them) is
-then counted once per execution of that segment, ``LAUNCHES["pred"]`` counts
-the predicate's executions, and ``RUNS`` the graph launches by program name.
+When a Result is fetched, each kernel launch captured in a segment
+(ops/cuda_iwe.py records them) is counted once per execution of that
+segment, ``LAUNCHES["pred"]`` counts the predicate's executions, and
+``RUNS`` the graph launches by program name.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ import ctypes
 import gc
 import threading
 import time
-from typing import Callable, List
+from typing import Callable, List, Sequence
 
 import numpy as np
 import torch
@@ -182,6 +189,7 @@ class Program:
         self._readback = torch.zeros(n_out + ncount, dtype=torch.float32, device=self.device)
         self.out = self._readback[:n_out]
         self._counts = self._readback[n_out:]
+        self._slots: List[torch.Tensor] = []  # free pinned host slots of the readback
         self._pool = None
         self._exec = None
         self._graphs: List = []     # the captured segments' torch graphs (own the pool blocks)
@@ -263,11 +271,12 @@ class Program:
             _lib.loop_exec_destroy(self._exec)
 
     # -- run --------------------------------------------------------------
-    def run(self) -> np.ndarray:
-        """Run the program; returns ``out`` on the host (one copy)."""
+    def run(self) -> "Result":
+        """Launch the program; returns the handle on this launch's ``out``.
+        Nothing is read on the host here."""
         if self.device.type != "cuda":
             self.build_fn(Eager())
-            return self.out.numpy().copy()
+            return Result(self, values=self._readback.numpy().copy())
         with torch.cuda.device(self.device):
             if self._exec is None:
                 with _capture_lock:
@@ -283,11 +292,21 @@ class Program:
                         if enabled:
                             gc.enable()
             lib = build()
-            stream = torch.cuda.current_stream(self.device).cuda_stream
-            _check(lib, lib.loop_launch(self._exec, ctypes.c_void_p(stream)), "cudaGraphLaunch")
-            host = self._readback.cpu().numpy()
-        self._count(host[self.out.numel():])
-        return host[:self.out.numel()].copy()
+            stream = torch.cuda.current_stream(self.device)
+            _check(lib, lib.loop_launch(self._exec, ctypes.c_void_p(stream.cuda_stream)),
+                   "cudaGraphLaunch")
+            return self._enqueue_readback(stream)
+
+    def _enqueue_readback(self, stream) -> "Result":
+        """Queue the copy of ``out`` and the counters into a pinned host slot
+        (a free one of this program's, else a new one) and an event behind
+        it; the slot returns to the pool when its Result is fetched."""
+        slot = (self._slots.pop() if self._slots
+                else torch.empty(self._readback.shape, dtype=torch.float32, pin_memory=True))
+        slot.copy_(self._readback, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(stream)
+        return Result(self, slot=slot, event=event)
 
     def _count(self, counts: np.ndarray) -> None:
         """Executed launches from the nodes' counters."""
@@ -304,3 +323,43 @@ class Program:
         with _lock:
             LAUNCHES["pred"] += preds
             RUNS[self.name] = RUNS.get(self.name, 0) + 1
+
+
+class Result:
+    """One launch's ``out``, in flight until fetched. ``fetched`` is False
+    until the first fetch; the values are kept after it, so a Result shared
+    by several readers (the lanes of one front-end launch) waits once."""
+
+    __slots__ = ("_prog", "_slot", "_event", "_values", "fetched")
+
+    def __init__(self, prog: Program, *, slot=None, event=None, values=None):
+        self._prog, self._slot, self._event = prog, slot, event
+        self._values = values
+        self.fetched = False
+
+    def _wait(self) -> None:
+        """Block until the launch and its copy have completed, then count its
+        kernel launches and give the slot back (no-op on the CPU)."""
+        if self._event is None:
+            return
+        self._event.synchronize()
+        host = self._slot.numpy()
+        n = self._prog.out.numel()
+        self._values = host[:n].copy()
+        self._prog._count(host[n:])
+        self._prog._slots.append(self._slot)
+        self._slot = self._event = None
+
+    def fetch(self) -> np.ndarray:
+        """``out`` of this launch on the host (waits once, the first time)."""
+        return fetch_all([self])[0]
+
+
+def fetch_all(results: Sequence[Result]) -> List[np.ndarray]:
+    """Every result's ``out`` on the host: one wait for all of them (each
+    launch's event; those queued before the last have completed by then)."""
+    for r in results:
+        if not r.fetched:
+            r._wait()
+            r.fetched = True
+    return [r._values[:r._prog.out.numel()] for r in results]

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from . import lie
+from .utils.device import to_device
 
 
 # ---------------------------------------------------------------------------
@@ -60,7 +61,7 @@ def _segment_and_u(t: torch.Tensor, t0, dt, num_knots: int, order: int):
 def _blending_tensor(order: int, dtype, device: str) -> torch.Tensor:
     """The cumulative blending matrix resident on ``device``, uploaded once:
     code captured into a CUDA graph may not copy from the host."""
-    return torch.as_tensor(blending_matrix(order, cumulative=True), dtype=dtype, device=device)
+    return to_device(blending_matrix(order, cumulative=True), device, dtype)
 
 
 def _coeffs(u: torch.Tensor, order: int, dtype) -> torch.Tensor:

@@ -3,8 +3,12 @@
 Rebuild of CMaxSLAM (src/cmax_slam.cpp:14-161) without ROS: construction
 precomputes the bearing LUT from the calibration and wires the front-end and
 back-end over one shared EventStore. Pushing events advances the front-end;
-every new angular-velocity estimate feeds the back-end, which solves each
-window as soon as it is complete.
+every new angular-velocity estimate feeds the back-end, which dispatches each
+window as soon as it is complete. As in the JAX package the loop runs ahead
+of the device: the front-end's estimates stay in flight until the back-end
+integrates them, and each window's solve completes at the next window (one
+wait for both, Backend._fused_fetch); flush() joins the window in flight,
+and the accessors below join what they read.
 """
 
 from __future__ import annotations
@@ -55,6 +59,10 @@ class CMaxSLAM:
                 metrics=self.metrics,
             )
             self.backend.retain_from_fn = self.frontend.min_needed_abs_index
+            # Estimates finalize when the back-end integrates them, in the
+            # window's one wait, not at every push.
+            self.frontend.auto_finalize = False
+            self.backend.finalize_fn = self.frontend.finalize_batch
         self._decim_phase = 0
         # Raw (pre-decimation) events consumed; checkpointed so a resumed
         # replay knows how far into the recording to skip.
@@ -64,8 +72,12 @@ class CMaxSLAM:
     def push_events(self, xs, ys, ts, ps) -> List[AngVelEstimate]:
         """Feed a chunk of raw sensor events (eventsCallback,
         src/cmax_slam.cpp:147-161): decimate by frontend_event_sample_rate,
-        advance the front-end, hand fresh ang-vels to the back-end and run
-        every window that became complete."""
+        advance the front-end, hand fresh ang-vels to the back-end and step
+        every window that became complete.
+
+        With a back-end the returned estimates may still be in flight (see
+        AngVelEstimate): call ``frontend.finalize_batch(ests)``, or read
+        ``ang_vel_log``, before reading their fields."""
         rate = self.cfg.frontend_event_sample_rate
         self._raw_count += len(ts)
         if rate > 1:
@@ -89,26 +101,36 @@ class CMaxSLAM:
             self.push_events(xs, ys, ts, ps)
 
     def flush(self) -> None:
-        """Join in-flight work. Every window is solved synchronously inside
-        push_events, so nothing is in flight; kept so that callers written
-        for the JAX system run unchanged."""
+        """Join the back-end's window in flight (the analog of waiting for
+        the reference's worker thread to drain, src/cmax_slam.cpp:92)."""
+        if self.backend is not None:
+            self.backend.flush()
 
     # ------------------------------------------------------------------
     @property
     def ang_vel_log(self) -> np.ndarray:
-        """All front-end estimates as (T, 4) array [t, wx, wy, wz] (rad/s)."""
+        """All front-end estimates as (T, 4) array [t, wx, wy, wz] (rad/s);
+        those in flight are finalized first, in one wait."""
         es = self.frontend.estimates
         if not es:
             return np.zeros((0, 4))
+        self.frontend.finalize_batch(es)
         return np.array([[e.t, *e.omega] for e in es])
 
     @property
     def trajectory_log(self):
-        """Back-end refined absolute poses as [(t, quat_wxyz)]."""
-        return [] if self.backend is None else self.backend.trajectory_log
+        """Back-end refined absolute poses as [(t, quat_wxyz)] (flushes)."""
+        if self.backend is None:
+            return []
+        self.backend.flush()
+        return self.backend.trajectory_log
 
     def window_results(self) -> List[WindowResult]:
-        return [] if self.backend is None else self.backend.results
+        """Every completed window's result (flushes)."""
+        if self.backend is None:
+            return []
+        self.backend.flush()
+        return self.backend.results
 
     def refine(self, source, passes: int = 1) -> List[WindowResult]:
         """Offline polish: re-run the sliding-window bundle adjustment over
@@ -153,10 +175,12 @@ class CMaxSLAM:
             yield (xs, ys, ts)
 
     def close(self) -> None:
-        """Release the system's resources. The port holds no background
-        threads, so this only flushes; kept so that callers written for the
-        JAX system run unchanged."""
+        """Flush both stages (the port holds no background threads, so this
+        is all there is to release); the system stays usable afterwards."""
         self.flush()
+        self.frontend.close()
+        if self.backend is not None:
+            self.backend.close()
 
     @property
     def raw_count(self) -> int:
@@ -168,7 +192,9 @@ class CMaxSLAM:
         package's CMaxSLAM.save_checkpoint, so either system can resume the
         other's checkpoint: trajectory knots, global map, window cursors,
         integrator anchors, the ang-vel inbox, the front-end packetizer phase,
-        the resident EventStore window and the raw stream position."""
+        the resident EventStore window and the raw stream position. Joins
+        the work in flight first."""
+        self.flush()
         state = {}
         if self.backend is not None:
             state.update(self.backend.checkpoint())

@@ -30,3 +30,21 @@ def resolve_devices(devices) -> list:
     # device of the tensors placed there.
     return [torch.device("cuda", torch.cuda.current_device())
             if d.type == "cuda" and d.index is None else d for d in out]
+
+
+def to_device(array, device, dtype=None) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) as a tensor on ``device``
+    without a wait on the host. A blocking copy from pageable memory makes
+    torch synchronize the stream, so it would wait for every solve queued
+    before it; on a CUDA device the array goes through a pinned staging
+    copy and a ``non_blocking`` upload instead. The staging buffer comes from
+    PyTorch's caching host allocator, which records an event on the stream
+    with the copy and reuses the buffer only once that event has completed.
+    On the CPU the result may share memory with ``array``."""
+    host = torch.as_tensor(array)
+    if dtype is not None:
+        host = host.to(dtype)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)

@@ -256,7 +256,8 @@ def test_stride_rows_and_carry_match_jax(flags):
         evP[i, 0, :n], evP[i, 1, :n] = xs, ys
         evP[i, 2, :n] = (ts - fe._t0).astype(np.float32)
         evP[i, 3, :n] = 1.0
-    rows, carry = fe._solver(L).solve(lanes, torch.tensor(omega0), host)
+    out = fe._solver(L).solve(lanes, torch.tensor(omega0), host).fetch()
+    rows, carry = out[:L * 5].reshape(L, 5), out[-3:]
 
     jsolve = _build_stride_solver(jwarp_local.CameraParams(*CAM), cfg.warp.event_batch_size,
                                   cfg.warp.blur_sigma, cfg.contrast_measure, cfg.optim,

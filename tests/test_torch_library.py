@@ -146,9 +146,9 @@ def test_parse_events_txt_and_window_match_jax(tmp_path, rng):
 
 
 def test_backend_run_flush_close_and_frontend_close():
-    """Nothing is in flight in the port: run() steps while a window is
-    ready and returns them, flush() and close() return None, and the
-    front-end's close() returns None."""
+    """A back-end with nothing in flight: run() steps while a window is
+    ready and returns them, flush() and close() return None (no window to
+    complete), and the front-end's close() returns None."""
     cfg = ijrr_config()
     W, H = 24, 18
     lut = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (W * H, 1))

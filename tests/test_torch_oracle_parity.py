@@ -89,6 +89,7 @@ def production(stream):
         slam.push_events(ev.xs[i:i + 40_000], ev.ys[i:i + 40_000],
                          ev.ts[i:i + 40_000], ev.pols[i:i + 40_000])
     slam.flush()
+    slam.frontend.finalize_batch(slam.frontend.estimates)
     return slam
 
 

@@ -58,7 +58,7 @@ def _systems(overrides=OVERRIDES):
 
 
 def _state(slam):
-    """(windows completed, knots) after a chunk; the JAX system is flushed
+    """(windows completed, knots) after a chunk; each system is flushed
     first so that its in-flight window has completed too."""
     slam.flush()
     be = slam.backend
@@ -154,6 +154,7 @@ def test_jax_checkpoint_resumes_in_the_port(runs):
         j.push_events(*chunk)
         t.push_events(*chunk)
     j.flush()
+    t.flush()
     _assert_omega_close(t.ang_vel_log, j.ang_vel_log)
     assert t.backend.count_window == j.backend.count_window == runs["j"].backend.count_window
     assert len(t.backend.bootstrap_results) == len(j.backend.bootstrap_results) > 0
@@ -184,6 +185,7 @@ def test_full_pano_solver_matches_jax(runs):
         j.push_events(*chunk)
         t.push_events(*chunk)
     j.flush()
+    t.flush()
     assert "backend.crop_windows" not in t.metrics.counters
     assert t.backend.count_window == j.backend.count_window >= 2
     _assert_omega_close(t.ang_vel_log, j.ang_vel_log)
@@ -206,6 +208,7 @@ def test_max_ba_correction_rejects_like_jax(runs):
         j.push_events(*chunk)
         t.push_events(*chunk)
     j.flush()
+    t.flush()
     res_t, res_j = t.window_results(), j.window_results()
     assert [(r.index, r.ran_ba, r.rejected) for r in res_t] == \
         [(r.index, r.ran_ba, r.rejected) for r in res_j]
