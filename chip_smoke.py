@@ -29,6 +29,11 @@ Phases, in order; any failure exits non-zero:
    the launch floor (an empty kernel's device time), then the wrapper time
    of each variant and the plain time and, for K2, the bilinear gather of
    F.grid_sample as a yardstick;
+   Then K3 (vote_jvp) against its plain version at one window's derivative
+   images (15 tangents of 84 700 events on 512x1024) and a small shape, with
+   dropped events (their NaN tangents never read) and dropped events alone
+   voting zero; device time with its zero fill, the fill alone and K3 alone
+   beside the bound, the launch floor, wrapper and plain times.
    Then the loop predicate: a WHILE node with a nested IF node run as one
    graph against the same program with its gates read on the host (equal
    results and predicate executions), with the time per iteration of each
@@ -56,7 +61,11 @@ Phases, in order; any failure exits non-zero:
    of the packet and of the crop objective must match the same objective on
    the plain vote on the card, and the graphed packet solves minimize_fr_cg
    (the host loop) solving the same packets from the same warm starts
-   (median |omega difference| < 0.01 rad/s); then the same stream on the
+   (median |omega difference| < 0.01 rad/s); the derivative images of
+   phase 4's widest window program's last window (derivative_images through
+   K3 against the plain tangent vote on the card, and torch.func.jvp of
+   pano_iwe, through Vote.jvp, against two of its slices; K3's launches
+   counted on that path); then the same stream on the
    per-packet schedule from the host store (frontend.device_store=False,
    batch_sweeps=0), with the same checks, the same packet grid and a median
    omega difference under 0.01 rad/s (the schedules give bit-equal solver
@@ -64,7 +73,12 @@ Phases, in order; any failure exits non-zero:
    must stay under 0.1 rad/s, or the packet that carries it, solved again
    alone from both schedules' warm starts, must reach both logged values;
    both walls are printed, and the host schedule too must show no wait per
-   packet. Then a ring of 2^15 events on 0.6 s of the
+   packet. Then phase 4 again once its systems are released: the same
+   configuration leases phase 4's pool entries (ops/program_pool.py) and
+   must capture no graph; its wall is printed beside phase 4's first. Every
+   later phase prints the pooled programs it built and captured, the
+   entries it leased again, the pool and the peak device memory. Then a
+   ring of 2^15 events on 0.6 s of the
    stream, cut, saved and resumed: appends and packets wrap, the resync
    wraps, lapped packets are gathered from the host store, and every ring
    packet equals its host packet. Then the cubic system: the stock preset
@@ -85,26 +99,32 @@ Phases, in order; any failure exits non-zero:
    final_state.npz must continue the packet grid;
 6. batched: ``cut_packets`` and ``track_batched_compacted(sweeps=2)`` on the
    same stream at full width (240x180, 10 000-event packets, the stock ijrr
-   front-end): median |omega - omega_true| < 0.2 rad/s, every lane's
-   iterations in (0, max_line_searches], both kernels launched, and one K1
-   launch of at least 224 lanes' images; prints packets per second, the
-   rounds and the median difference against phase 4's sequential log;
+   front-end), called twice: median |omega - omega_true| < 0.2 rad/s, every
+   lane's iterations in (0, max_line_searches], every round one graph
+   launch of a pooled round program, one host wait per round and one read
+   of the result (SyncAudit), both kernels launched, one K1 launch of at
+   least 224 lanes' images, and the second call capturing only buckets the
+   first did not meet; prints per
+   call packets per second, rounds, captures and host reads per round, and
+   the median difference against phase 4's sequential log;
 7. multi-device on one card, with the device list ["cuda:0", "cuda:0"]: the
    event-sharded window objective against the single-device one on a
    back-end window of the stream, at the ijrr 512x1024 panorama and at
    2048x4096 (the blur's shift-and-add path), value within rtol 2e-5 and
    gradient within rtol 2e-3, atol 2e-6; then the 2-segment replay
-   (overlap 0.4 s) on the stock preset, stitched RMS < 0.5 deg.
+   (overlap 0.4 s) on the stock preset, stitched RMS < 0.5 deg, its two
+   live segments on distinct pool entries.
 
 With ``--parent DIR`` (an unpacked checkout of another commit) it then
 times phase 4 on both trees in turns, each turn a process of its own.
 
 Before the last line it prints one JSON object with every kernel's route,
-source, launches on each path (the two system runs of phase 4, the small
-ring, the cubic system, the resume pair, the CLI run of phase 5, the batched run of phase
-6 and the window and replay runs of phase 7, each counted from 0), error,
-times and bound, and the same per variant (K1: G, P), with K1's launches
-on the system path by shape bucket; the last line is ``{"ok": true,
+source, launches on each path (the system runs of phase 4, its derivative
+images, the small ring, the cubic system, the resume pair, the CLI run of
+phase 5, the second batched call of phase 6 and the window and replay runs
+of phase 7, each counted from 0), error, times and bound, and the same per
+variant (K1: G, P), with K1's launches on the system path by shape bucket;
+K3's launches are those of the derivative-images path; the last line is ``{"ok": true,
 "device": {...}}``. Imports
 neither jax nor the JAX package.
 """
@@ -152,10 +172,17 @@ REPORTED = {"fwd": "lanes", "bwd": "lanegrad"}
 # written once) over the H100 SXM's 3.35 TB/s, or its float32 operations
 # over 67 TFLOP/s (non-tensor), whichever is larger. Operations per event:
 # K1 2 floors, 4 differences, 8 products and 4 adds; K2 2 floors, 4
-# differences and 21 products, sums and differences over its four gathers.
+# differences and 21 products, sums and differences over its four gathers;
+# K3, per event and tangent image, 2 floors, 4 differences, 4 tangent
+# products, 4 sums, 4 weight products and 4 adds.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-FLOPS_PER_EVENT = {"fwd": 18, "bwd": 27}
+FLOPS_PER_EVENT = {"fwd": 18, "bwd": 27, "jvp": 22}
+# K3's shapes (tag: T tangent images, N events, H x W): one back-end window
+# of the stock preset on its 512x1024 panorama with the linear spline's 3K =
+# 15 knot parameters (phase 7's window holds 84 700 events; derivative_images
+# launches it), and a small one on the camera image.
+JVP_SHAPES = (("window", 15, 84_700, 512, 1024), ("small", 4, 10_000, 180, 240))
 # K2's modes: "full" writes dw too (the TPU kernel's whole function),
 # "paths" does not (as every path calls it: no path differentiates weights).
 BWD_MODES = {"full": True, "paths": False}
@@ -222,6 +249,8 @@ def bound(kernel: str, b: int, n: int, H: int, W: int, rows, mode: str = "full")
     bytes: the compact operands and g read, dpx and dpy written."""
     if kernel == "fwd":
         nbytes = 4 * (n * (2 * rows[0] + rows[1]) + b * H * W)
+    elif kernel == "jvp":  # one event row, b tangent rows per coordinate
+        nbytes = 4 * (3 * n + 2 * b * n + b * H * W)
     elif mode == "full":
         nbytes = 4 * (6 * b * n + b * H * W)
     else:
@@ -591,6 +620,73 @@ def check_bwd_wide(rng, attrs) -> float:
     return err
 
 
+def check_jvp(rng, floor_ms: float) -> dict:
+    """Phase 3's K3 part: vote_jvp against its plain version
+    (scatter.bilinear_accumulate_jvp) on the card at JVP_SHAPES, with
+    _events' dropped events (NaN and infinite coordinates, whose tangents
+    are NaN too: never read, weight-0 padding), and the dropped events alone
+    voting all-zero images; device times in turns (K3 with the zero fill of
+    its output, the fill alone, K3 alone on a zeroed output) beside the
+    bound and the launch floor; wrapper and plain times. No one PyTorch call
+    computes the function (library_ms null). Returns per shape its numbers,
+    and the max error over all shapes."""
+    import torch
+    from cmax_slam_tpu_torch.ops import cuda_iwe, scatter
+
+    out = {"max_abs_err": 0.0, "by_shape": {}}
+    for tag, T, n, H, W in JVP_SHAPES:
+        px, py, wt = _events(rng, n, H, W, (1, 1), "cuda")
+        tpx, tpy = (torch.tensor(rng.normal(size=(T, n)).astype(np.float32), device="cuda")
+                    for _ in range(2))
+        dropped = _dropped(n)
+        k = n // 5
+        tpx[:, k:k + 3] = float("nan")
+        ref = scatter.bilinear_accumulate_jvp(px[0], py[0], wt[0], tpx, tpy, H, W)
+        got = cuda_iwe.vote_jvp(px, py, wt, tpx, tpy, H, W, T)
+        torch.cuda.synchronize()
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        err = float((got - ref).abs().max())
+        if not (got.shape == ref.shape and bool(torch.isfinite(got).all()) and err <= tol):
+            raise AssertionError(f"vote_jvp {tag}: max err {err} > {tol}")
+        dead = [t[:, dropped].contiguous() for t in (px, py, wt, tpx, tpy)]
+        if bool(cuda_iwe.vote_jvp(*dead, H, W, T).any()):
+            raise AssertionError(f"vote_jvp {tag}: dropped events voted")
+        img = torch.empty((T, H, W), device="cuda")
+
+        def launch(fill=True):
+            if fill:
+                img.zero_()
+            cuda_iwe.launch_jvp(px, py, wt, tpx, tpy, img, T, H, W)
+
+        timed = {"K3": launch, "fill": lambda: img.zero_(), "K3_alone": lambda: launch(False)}
+        dev_t = {v: [] for v in timed}
+        for v in ("K3", "fill", "K3_alone", "K3_alone", "fill", "K3"):
+            dev_t[v].append(device_ms(timed[v])[0])
+        ms = _time_ms(lambda: cuda_iwe.vote_jvp(px, py, wt, tpx, tpy, H, W, T))
+        plain_ms = _time_ms(lambda: scatter.bilinear_accumulate_jvp(px[0], py[0], wt[0], tpx,
+                                                                    tpy, H, W))
+        bd = bound("jvp", T, n, H, W, (1, 1))
+        dev_ms = float(np.mean(dev_t["K3"]))
+        entry = {**bd, "device_ms": dev_ms, "ms": ms, "plain_ms": plain_ms, "floor_ms": floor_ms,
+                 "fill_ms": dev_t["fill"], "alone_ms": dev_t["K3_alone"], "max_abs_err": err}
+        _log(f"vote_jvp {tag:6s} T={T} N={n} {H}x{W}: max_abs_err {err:.3e} (tol {tol:.3e}); "
+             f"device ms in turns K3 with its fill {'/'.join(f'{a:.4f}' for a in dev_t['K3'])}, "
+             f"fill {'/'.join(f'{a:.4f}' for a in dev_t['fill'])}, K3 alone "
+             f"{'/'.join(f'{a:.4f}' for a in dev_t['K3_alone'])}; bound {bd['bytes'] / 1e6:.3f} "
+             f"MB, {bd['bound_ms'] * 1e3:.2f} us ({bd['bound_by']}), at "
+             f"{bd['bound_ms'] / dev_ms:.1%} of it; floor {floor_ms * 1e3:.2f} us; wrapper "
+             f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["by_shape"][tag] = entry
+        del img, got, ref, dead
+    rep = out["by_shape"][JVP_SHAPES[0][0]]
+    T, n, H, W = JVP_SHAPES[0][1:]
+    out.update(shape=f"{JVP_SHAPES[0][0]} {T}x{n}@{H}x{W}", ms=rep["ms"],
+               device_ms=rep["device_ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+               bound_by=rep["bound_by"], floor_ms=floor_ms)
+    return out
+
+
 def _rot_fn(omega):
     """Vectorized R(t) = exp(omega t) for the synthetic generator."""
     theta = np.linalg.norm(omega)
@@ -715,7 +811,7 @@ def _spy_packets(fe) -> dict:
             beg, end = live[-1].span
             xs, ys, ts, _ = fe.store.slice_abs(beg, end)
             host = fe._packet(xs, ys, ts, float(np.float32(live[-1].t - fe._t0)))
-            tally["bad"].append(unequal(fe._packets.packet, host))
+            tally["bad"].append(unequal(fe._solver(len(flags)).packet, host))
             tally["program"] += 1
         tally["s"] += time.perf_counter() - t0
 
@@ -1412,12 +1508,18 @@ def _cam(calib):
 
 
 def run_batched(device: str = "cuda", seq_log=None, duration: float = 2.0):
-    """Phase 6: throughput-mode tracking of the whole stream at full width.
-    Returns (launches during the tracking, {check: passed})."""
+    """Phase 6: throughput-mode tracking of the whole stream at full width,
+    called twice in the process: the first call captures the round
+    programs, the second takes them from the pool (and captures only a
+    bucket the first call did not meet). Per call: wall and
+    packets/s, rounds (graph launches of the round programs), captures, and
+    the host's waits (SyncAudit): one per round, the round's status read,
+    plus the call's final result, and none inside a round. Returns
+    (launches during the second call, {check: passed})."""
     import torch
     from cmax_slam_tpu_torch.calib import bearing_lut
     from cmax_slam_tpu_torch.config import ijrr_config
-    from cmax_slam_tpu_torch.ops import cuda_iwe
+    from cmax_slam_tpu_torch.ops import cuda_iwe, device_loop, program_pool
     from cmax_slam_tpu_torch.parallel import batched
 
     ev, omega, calib = make_stream(duration)
@@ -1426,52 +1528,85 @@ def run_batched(device: str = "cuda", seq_log=None, duration: float = 2.0):
     t0 = time.perf_counter()
     pb = batched.cut_packets(ev.xs, ev.ys, ev.ts, bearing_lut(calib), cam, cfg, device=device)
     t_cut = time.perf_counter() - t0
+    n = pb.bearings.shape[0]
+    max_ls = cfg.optim.max_line_searches
 
-    # Widest K1 launch and the number of compaction rounds, read through
-    # wrappers of the kernel wrapper and of the round (counts are untouched).
-    widest, rounds = [0], [0]
-    vote_fwd, run_round = cuda_iwe.vote_fwd, batched._run_round
+    # Widest K1 launch, read through a wrapper of the kernel wrapper (counts
+    # are untouched; a graph's launches pass through it while it is captured).
+    widest = [0]
+    vote_fwd = cuda_iwe.vote_fwd
 
     def widest_vote(px, py, w, height, width, b=None, **kw):
         widest[0] = max(widest[0], px.shape[0] if b is None else b)
         return vote_fwd(px, py, w, height, width, b, **kw)
 
-    def counted_round(*a, **kw):
-        rounds[0] += 1
-        return run_round(*a, **kw)
-
-    cuda_iwe.vote_fwd, batched._run_round = widest_vote, counted_round
+    calls, checks = [], {}
+    cuda_iwe.vote_fwd = widest_vote
     try:
-        _reset_launches()
-        t0 = time.perf_counter()
-        times, om, _, iters = batched.track_batched_compacted(pb, cam, cfg, sweeps=2)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = _launches()
+        for call in ("first", "second"):
+            _reset_launches()
+            pool0 = program_pool.stats()
+            audit = SyncAudit(device)
+            t0 = time.perf_counter()
+            with audit:
+                times, om, _, iters = batched.track_batched_compacted(pb, cam, cfg, sweeps=2)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rounds = device_loop.RUNS.get("batched.round", 0)
+            rep = audit.report(rounds, 0)
+            err = np.linalg.norm(om - omega, axis=1)
+            stats = {"call": call, "wall_s": wall, "packets_per_s": n / wall, "rounds": rounds,
+                     "graph_runs": dict(device_loop.RUNS), "captures": dict(device_loop.CAPTURES),
+                     "programs_built": program_pool.stats()["programs"] - pool0["programs"],
+                     "event_waits": rep["event_waits"], "syncs": rep["syncs"],
+                     "reads_per_round": (rep["event_waits"] + rep["syncs"]) / max(rounds, 1),
+                     "syncs_by_site": rep["syncs_by_site"],
+                     "median_err": float(np.median(err)), "max_err": float(err.max()),
+                     "iters": [int(iters.min()), float(iters.mean()), int(iters.max())],
+                     "launches": _launches()}
+            calls.append(stats)
+            _log(f"batched {call} call: {n} packets x {pb.bearings.shape[1]} events (cut in "
+                 f"{t_cut:.2f} s) tracked in {wall:.2f} s ({n / wall:.1f} packets/s, "
+                 f"{n * pb.bearings.shape[1] / wall:.0f} events/s); {rounds} rounds as graph "
+                 f"launches, {stats['captures']['graphs']} captures "
+                 f"({stats['captures']['s']:.2f} s), {stats['programs_built']} programs built; "
+                 f"host waits {rep['event_waits']} + syncs {rep['syncs']} "
+                 f"({stats['reads_per_round']:.3f} per round; syncs by site "
+                 f"{json.dumps(rep['syncs_by_site'])}); median |omega - omega_true| "
+                 f"{np.median(err):.4f} rad/s (max {err.max():.4f}); iters min {iters.min()} "
+                 f"mean {iters.mean():.1f} max {iters.max()}; launches {stats['launches']}")
+            checks[f"{call}: median omega error < 0.2 rad/s"] = float(np.median(err)) < 0.2
+            checks[f"{call}: iters in (0, max_line_searches]"] = bool(
+                np.all((iters > 0) & (iters <= max_ls)))
+            checks[f"{call}: every round a graph launch"] = rounds > 0 and (
+                device != "cuda" or stats["graph_runs"].get("batched.round", 0) == rounds)
+            checks[f"{call}: one wait per round, one read of the result, none in a round"] = (
+                rep["event_waits"] == rounds and rep["syncs"] <= 1) if device == "cuda" else True
     finally:
-        cuda_iwe.vote_fwd, batched._run_round = vote_fwd, run_round
-    n = len(times)
-    err = np.linalg.norm(om - omega, axis=1)
+        cuda_iwe.vote_fwd = vote_fwd
+    first, second = calls
+    launches = second["launches"]
     vs_seq = "n/a"
     if seq_log is not None and len(seq_log):
         m = min(len(seq_log), n)
         if np.allclose(seq_log[:m, 0], times[:m], atol=1e-9):
             vs_seq = f"{np.median(np.linalg.norm(om[:m] - seq_log[:m, 1:], axis=1)):.4f} rad/s"
-    max_ls = cfg.optim.max_line_searches
-    _log(f"batched: {n} packets x {pb.bearings.shape[1]} events cut in {t_cut:.2f} s; "
-         f"tracked in {wall:.2f} s ({n / wall:.1f} packets/s, {n * pb.bearings.shape[1] / wall:.0f}"
-         f" events/s), {rounds[0]} rounds over 2 sweeps; median |omega - omega_true| "
-         f"{np.median(err):.4f} rad/s (max {err.max():.4f}); median vs sequential log "
-         f"{vs_seq}; iters min {iters.min()} mean {iters.mean():.1f} max {iters.max()}; "
-         f"launches {launches}, widest K1 launch B={widest[0]}")
-    checks = {
-        "median omega error < 0.2 rad/s": float(np.median(err)) < 0.2,
-        "iters in (0, max_line_searches]": bool(np.all((iters > 0) & (iters <= max_ls))),
+    _log(f"batched: first call {first['packets_per_s']:.1f} packets/s ({first['wall_s']:.2f} s, "
+         f"{first['captures']['graphs']} captures), second call {second['packets_per_s']:.1f} "
+         f"packets/s ({second['wall_s']:.2f} s, {second['captures']['graphs']} captures); median "
+         f"vs sequential log {vs_seq}; widest K1 launch B={widest[0]}; pool "
+         f"{json.dumps(program_pool.stats())}")
+    checks |= {
         "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
         "a K1 launch of >= 224 lanes' images": widest[0] >= 224,
+        # A lane's convergence differs between calls by K1's atomic sum order,
+        # so the second call may meet a bucket the first did not: it captures
+        # only the programs it builds, never a pooled one again.
+        "second call captures only the programs it builds": (
+            second["captures"]["graphs"] == second["programs_built"]),
     }
-    return launches, checks
+    return launches, checks, calls
 
 
 def make_window(ev, omega, calib, pano_hw, device, t_lo=0.5, span=0.2, dt_knots=0.05,
@@ -1583,11 +1718,15 @@ def run_replay(devices=("cuda:0", "cuda:0"), duration: float = 2.0):
     q_gt = np.stack([spline._np_quat_exp(omega * t) for t in times])
     rms, errs = rotation_rms_deg(times, q_gt, quats, "global")
     wins = [len(s.slam.window_results()) for s in segs]
+    entries = [(s.slam.frontend._entry, s.slam.backend._entry) for s in segs]
     _log(f"replay: 2 segments on {list(devices)}, wall {wall:.2f} s for {duration} s of "
          f"stream; windows per segment {wins}; stitched RMS {rms:.4f} deg (max "
-         f"{errs.max():.3f}) over {len(times)} samples; launches {launches}")
+         f"{errs.max():.3f}) over {len(times)} samples; pool entries (front-end, back-end) "
+         f"leases {[[e.leases for e in pair] for pair in entries]}; launches {launches}")
     checks = {
         "stitched RMS < 0.5 deg": rms < 0.5,
+        "the live segments lease distinct entries": all(
+            a is not b for a, b in zip(*entries)),
         "every segment ran its back-end": all(w >= 2 for w in wins),
         "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
     }
@@ -1695,7 +1834,7 @@ def check_captured_objectives(slam, ev) -> dict:
     cases = {"packet": (warp_local, warp_local.make_local_objective(
         packet, fe.cam, fe.cfg.warp.blur_sigma, fe.cfg.contrast_measure),
         torch.tensor([est.omega], dtype=torch.float32, device="cuda"))}
-    solver = next((s for key, s in be._solvers.items() if key[2] is not None), None)
+    solver = next((s for key, s in be._entry.programs.items() if key[3] is not None), None)
     if solver is not None:  # the last window loaded into a crop program
         K = solver.win.knots.shape[0]
         x = torch.full((1, 3 * K), 1e-3, device="cuda")
@@ -1733,6 +1872,73 @@ def check_captured_objectives(slam, ev) -> dict:
         out[name] = buf
         _log(f"captured {name} objective vs plain vote: {json.dumps(buf)}")
     return {"captured objectives match the plain vote": bool(ok)} | {"_": out}
+
+
+def run_derivative_images(slam) -> tuple:
+    """The derivative-images phase on one phase-4 window: the window loaded
+    last into phase 4's widest window program (its events, knots, map term
+    and alpha, on the ijrr 512x1024 panorama). derivative_images through K3
+    against the same function on the plain tangent vote on the card, and
+    torch.func.jvp of pano_iwe (Vote.jvp: K3 and K1) along two knot
+    parameters against the matching slices of the derivative images; both
+    within 1e-5 of the images' scale (K3 sums with atomics in a run-dependent
+    order). Prints the times of both versions. Returns (launches on the
+    path, {check: passed}, {numbers})."""
+    import torch
+    from cmax_slam_tpu_torch.ops import scatter, warp_pano
+
+    be = slam.backend
+    solver = max(be._entry.programs.values(), key=lambda p: p.win.weights.shape[0])
+    win, pano, order = solver.win, be.pano, be.order
+    sigma = be.cfg.warp.blur_sigma
+    K = win.knots.shape[0]
+    N = win.weights.shape[0]
+
+    def derive():
+        return warp_pano.derivative_images(win, pano, order, sigma)
+
+    dev = win.knots.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    _reset_launches()
+    got = derive()
+    zeros = torch.zeros((K, 3), device=dev)
+    free = [k for k in range(K) if float(win.free_mask[k]) > 0]
+    dirs = [(free[0], 2), (free[-1], 0)]
+    jvp_err, jvp_tol = [], []
+    for k, c in dirs:
+        v = torch.zeros((K, 3), device=dev)
+        v[k, c] = 1.0
+        _, tan = torch.func.jvp(lambda d: warp_pano.pano_iwe(d, win, pano, order, sigma)[2],
+                                (zeros,), (v,))
+        jvp_err.append(float((tan - got[k, c]).abs().max()))
+        jvp_tol.append(1e-5 * max(1.0, float(got[k, c].abs().max())))
+    sync()
+    launches = _launches()
+    ms = _time_ms(derive, reps=5) if dev.type == "cuda" else float("nan")
+    tangent_vote = warp_pano.tangent_vote
+    warp_pano.tangent_vote = scatter.bilinear_accumulate_jvp  # the plain version, on the card
+    try:
+        ref = derive()
+        plain_ms = _time_ms(derive, reps=5) if dev.type == "cuda" else float("nan")
+    finally:
+        warp_pano.tangent_vote = tangent_vote
+    sync()
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    err = float((got - ref).abs().max())
+    out = {"events": N, "knots": K, "shape": list(got.shape), "max_abs_err": err, "tol": tol,
+           "jvp_errs": jvp_err, "jvp_tols": jvp_tol, "ms": ms, "plain_ms": plain_ms,
+           "scale": float(ref.abs().max())}
+    _log(f"derivative images of a phase-4 window ({N} events, {K} knots, "
+         f"{pano.height}x{pano.width}): {json.dumps(out)}; launches {launches}")
+    checks = {
+        "derivative images vs the plain tangent vote": bool(
+            got.shape == (K, 3, pano.height, pano.width) and torch.isfinite(got).all()
+            and err <= tol),
+        "jvp of pano_iwe equals the derivative images' slice": all(
+            e <= t for e, t in zip(jvp_err, jvp_tol)),
+        "K3 launched": launches["jvp"] > 0 or dev.type != "cuda",
+    }
+    return launches, checks, out
 
 
 def compare_host_loop(slam, ev) -> dict:
@@ -1785,27 +1991,45 @@ _WALL_PROBE = """
 import json, sys, time
 sys.path.insert(0, ".")
 import chip_smoke
-walls = [chip_smoke.run_system(label="turn")[3] for _ in range(2)]
+walls, captures = [], []
+for _ in range(2):  # the first run's system is released before the second
+    run = chip_smoke.run_system(label="turn")
+    walls.append(run[3])
+    captures.append(run[5]["captures"])
+    del run
 print("WALLS " + json.dumps(walls))
+print("CAPTURES " + json.dumps(captures))
 """
+
+
+def _pool_snapshot() -> tuple:
+    """({id of each pooled program: captured}, {id of each entry: leases})."""
+    from cmax_slam_tpu_torch.ops import program_pool
+
+    entries = [e for group in list(program_pool.ENTRIES.values()) for e in group]
+    return ({id(p): p.program._exec is not None for e in entries for p in e.programs.values()},
+            {id(e): e.leases for e in entries})
 
 
 def walls_in_turns(parent: str, card: str) -> dict:
     """Phase 4's wall on this tree and on ``parent`` (an unpacked checkout
     of another commit), in turns: parent, this, this, parent, each turn a
     process of its own that runs phase 4 twice (the first run pays the
-    captures and the library set-up, the second is warm). Returns
-    {tree: [[first, warm], ...]}."""
+    captures and the library set-up, the second is warm: a tree with the
+    program pool captures nothing in it). Returns {tree: [[first, warm],
+    ...]} and prints each run's captures."""
     out = {"parent": [], "change": []}
     for name in ("parent", "change", "change", "parent"):
         cwd = parent if name == "parent" else REPO
         proc = subprocess.run([sys.executable, "-c", _WALL_PROBE], cwd=cwd,
                               capture_output=True, text=True, timeout=900)
-        line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("WALLS ")), None)
-        if proc.returncode != 0 or line is None:
+        lines = {ln.split(" ", 1)[0]: ln.split(" ", 1)[1] for ln in proc.stdout.splitlines()
+                 if ln.startswith(("WALLS ", "CAPTURES "))}
+        if proc.returncode != 0 or "WALLS" not in lines:
             raise RuntimeError(f"phase 4 in {cwd} failed:\n{proc.stderr[-3000:]}")
-        out[name].append(json.loads(line[6:]))
-        _log(f"turns: {name} phase 4 walls (first, warm) {out[name][-1]} s")
+        out[name].append(json.loads(lines["WALLS"]))
+        _log(f"turns: {name} phase 4 walls (first, warm) {out[name][-1]} s, captures "
+             f"{lines.get('CAPTURES')}")
     _log(f"phase 4 wall in turns on {card}: parent {out['parent']}, this tree "
          f"{out['change']} (s, first run then warm run per process)")
     return out
@@ -1827,7 +2051,7 @@ def main() -> int:
     # PyTorch's defaults for matmuls, stated here so no environment changes them.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from cmax_slam_tpu_torch.ops import cuda_iwe, device_loop, nvcc
+    from cmax_slam_tpu_torch.ops import cuda_iwe, device_loop, nvcc, program_pool
 
     card = card_line()
     _log(f"card: {card}  (torch {torch.__version__}, CUDA {torch.version.cuda})")
@@ -1837,7 +2061,9 @@ def main() -> int:
     device_loop.build()
     _log(f"build: {time.perf_counter() - t0:.2f} s ({cuda_iwe.library_path().name}, "
          f"{device_loop.build_job()[2].name})")
-    kernels = check_kernels(np.random.default_rng(0))
+    rng = np.random.default_rng(0)
+    kernels = check_kernels(rng)
+    jvp = check_jvp(rng, kernels["bwd"]["floor_ms"])
     pred = check_loop_pred()
     _require("loop predicate", {"graph and host gate agree": pred["ok"],
                                 "launches in flight fetch their own numbers":
@@ -1854,38 +2080,65 @@ def main() -> int:
     objectives = check_captured_objectives(slam, ev)
     _require("captured objectives", {k: v for k, v in objectives.items() if k != "_"})
     _require("host loop", compare_host_loop(slam, ev))
+    deriv_launches, checks, deriv = run_derivative_images(slam)
+    _require("derivative images", checks)
     host_launches, checks, _, host_wall, host_slam, graphs["system_host"] = run_system(
         overrides=HOST_SCHEDULE, label="system_host", audit=True)
     _require("system_host", checks)
     _require("schedules", compare_schedules(slam, wall, host_slam, host_wall))
+    stock_entries = (slam.frontend._entry, slam.backend._entry)
     del slam, host_slam
-    ring_launches, checks = run_ring_wrap()
-    _require("ring_wrap", checks)
-    cubic_launches, checks, _, _, cubic_slam, graphs["cubic"] = run_system(
-        overrides=CUBIC, label="cubic", audit=True)
-    del cubic_slam
-    _require("cubic", checks)
-    resume_launches, checks = run_resume()
-    _require("resume", checks)
-    cli_launches, checks = run_cli()
-    _require("cli", checks)
-    batched_launches, checks = run_batched(seq_log=seq_log)
-    _require("batched", checks)
-    shard_launches, checks = run_window_shard()
-    _require("window_shard", checks)
-    replay_launches, checks = run_replay()
-    _require("replay", checks)
+    # The same configuration again, after phase 4's system is released: it
+    # leases phase 4's pool entries and captures nothing.
+    warm_launches, checks, _, warm_wall, warm_slam, graphs["system_warm"] = run_system(
+        label="system_warm", audit=True)
+    checks["leases phase 4's pool entries"] = all(
+        a is b for a, b in zip((warm_slam.frontend._entry, warm_slam.backend._entry),
+                               stock_entries))
+    checks["captures no graph"] = graphs["system_warm"]["captures"]["graphs"] == 0
+    _log(f"system_warm: wall {warm_wall:.2f} s against phase 4's first {wall:.2f} s; captures "
+         f"{graphs['system_warm']['captures']}; pool {json.dumps(program_pool.stats())}")
+    del warm_slam
+    _require("system_warm", checks)
+    captures = {}  # later phases: pooled programs captured and built, entries leased again
+
+    def phase(name, fn, *a, **kw):
+        (progs0, leases0), res = _pool_snapshot(), fn(*a, **kw)
+        progs, leases = _pool_snapshot()
+        captures[name] = {
+            "captured": sum(c and not progs0.get(i, False) for i, c in progs.items()),
+            "built": len(progs.keys() - progs0.keys()),
+            "entries_leased_again": sum(n > leases0[i] for i, n in leases.items() if i in leases0)}
+        _log(f"{name}: pooled programs {json.dumps(captures[name])}, pool "
+             f"{json.dumps(program_pool.stats())}, peak memory "
+             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        _require(name, res[1])
+        return res
+
+    ring_launches = phase("ring_wrap", run_ring_wrap)[0]
+    cubic = phase("cubic", run_system, overrides=CUBIC, label="cubic", audit=True)
+    cubic_launches, graphs["cubic"] = cubic[0], cubic[5]
+    del cubic  # its system: the later phases lease its entries
+    resume_launches = phase("resume", run_resume)[0]
+    cli_launches = phase("cli", run_cli)[0]
+    batched_launches = phase("batched", run_batched, seq_log=seq_log)[0]
+    shard_launches = phase("window_shard", run_window_shard)[0]
+    replay_launches = phase("replay", run_replay)[0]
     if "--parent" in sys.argv:  # phase 4's wall against another commit, in turns
         walls_in_turns(os.path.abspath(sys.argv[sys.argv.index("--parent") + 1]), card)
 
     _log("device programs per path: " + json.dumps(graphs))
+    _log("captures per later phase: " + json.dumps(captures))
+    _log(f"program pool at the end: {json.dumps(program_pool.stats())}; peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     src = "cmax_slam_tpu_torch/csrc/iwe.cu"
     replaces = {"fwd": "cmax_slam_tpu/ops/pallas_iwe.py:276 (_fwd_impl, pallas_call at :289)",
                 "bwd": "cmax_slam_tpu/ops/pallas_iwe.py:307 (_vjp_bwd, pallas_call at :350; "
                        "kernel bodies _bwd_kernel_lanes :200 and _bwd_kernel :149)"}
     names = {"fwd": "vote_fwd", "bwd": "vote_bwd"}
-    paths = {"system": launches, "system_host": host_launches, "ring_wrap": ring_launches,
-             "cubic": cubic_launches,
+    paths = {"system": launches, "derivative_images": deriv_launches,
+             "system_host": host_launches, "system_warm": warm_launches,
+             "ring_wrap": ring_launches, "cubic": cubic_launches,
              "resume": resume_launches, "cli": cli_launches, "batched": batched_launches,
              "window_shard": shard_launches, "replay": replay_launches}
 
@@ -1938,6 +2191,18 @@ def main() -> int:
                                    if var in s["modes"]["paths"]["variants"]}}
                 for var in cuda_iwe.BWD_VARIANTS}
         rows.append(row)
+    rows.append({
+        "name": "vote_jvp", "route": "cuda", "source": src,
+        "replaces": "no Pallas kernel: JAX's forward mode through its XLA scatter vote "
+                    "(cmax_slam_tpu/ops/scatter.py:193 bilinear_accumulate_scatter, reached "
+                    "through :139 bilinear_accumulate_two) inside jax.jacfwd "
+                    "(cmax_slam_tpu/ops/warp_pano.py:236, derivative_images)",
+        "launches": deriv_launches["jvp"], "launches_by_path": by_path("jvp"),
+        "max_abs_err": jvp["max_abs_err"], "ms": jvp["ms"],
+        "device_ms": jvp["device_ms"], "plain_ms": jvp["plain_ms"], "bound_ms": jvp["bound_ms"],
+        "bound_by": jvp["bound_by"], "library_ms": None, "floor_ms": jvp["floor_ms"],
+        "shape": jvp["shape"], "by_shape": jvp["by_shape"],
+        "derivative_images": deriv})
     rows.append({
         "name": "loop_pred", "route": "cuda", "source": "cmax_slam_tpu_torch/csrc/loop.cu",
         "replaces": "cmax_slam_tpu/ops/optim.py:573 (lax.while_loop's cond; the lax.cond of "

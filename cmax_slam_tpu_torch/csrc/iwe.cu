@@ -60,15 +60,29 @@
 //   all lost to it on an H100 (PERF.md). For launches of fewer images (one
 //   packet, one back-end crop) and images too large to stage (the
 //   panoramas). Its index is 32-bit below 2^31 events and 64-bit above.
+//
+// K3 iwe_vote_jvp is the vote's forward-mode derivative, which the TPU
+// package never wrote as a kernel: JAX's forward mode differentiates its XLA
+// scatter vote (ops/scatter.py: bilinear_accumulate_scatter, reached through
+// bilinear_accumulate_two inside jax.jacfwd in ops/warp_pano.py's
+// derivative_images). Given coordinate tangents tpx, tpy it votes T tangent
+// images: each kept event adds the floor-parametrized derivative of its four
+// taps, w * (-tpx (1-dy) - tpy (1-dx)), w * (tpx (1-dy) - tpy dx),
+// w * (-tpx dy + tpy (1-dx)), w * (tpx dy + tpy dx), the derivatives K2
+// differentiates. It is K1's G with other tap weights: one thread per
+// (tangent image, event), four global atomics into a zeroed output. What
+// bounds it is atomic throughput to L2 (four scattered adds per event and
+// tangent), and for one window's derivative images (15-21 tangents of about
+// 85 000 events) the launch and the zero fill of the T images.
 
-// Both kernels take B images of H x W and each of px, py and w as a compact
-// (B / g, N) array, flat image b reading row b / g (g = 1 for a full
-// operand), so weights shared by a ladder's rungs or coordinates shared by
-// the old/new split are read in place. An event is dropped (and gets exactly
-// zero gradients) unless 1 <= floor(px) < W-2, 1 <= floor(py) < H-2 and
-// w != 0, which is also what keeps NaN and infinite coordinates out of every
-// multiply. Offsets into images are int64: B x H x W passes 2^31 at
-// 2048x4096 x 256.
+// The kernels take B images of H x W and each of px, py and w (K3: and the
+// tangents) as a compact (B / g, N) array, flat image b reading row b / g
+// (g = 1 for a full operand), so weights shared by a ladder's rungs or
+// coordinates shared by the old/new split are read in place. An event is
+// dropped (and gets exactly zero gradients and tangents) unless
+// 1 <= floor(px) < W-2, 1 <= floor(py) < H-2 and w != 0, which is also what
+// keeps NaN and infinite coordinates out of every multiply. Offsets into
+// images are int64: B x H x W passes 2^31 at 2048x4096 x 256.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -380,6 +394,32 @@ __global__ void __launch_bounds__(kThreadsS) vote_bwd_staged_kernel(Events ev,
   }
 }
 
+// K3's coordinate tangents, compact like the events: image b reads row
+// b / g* of each.
+struct Tangents {
+  const float* tpx;
+  const float* tpy;
+  int64_t gx, gy;
+};
+
+__global__ void vote_jvp_kernel(Events ev, Tangents tg, float* __restrict__ out, int64_t total,
+                                int H, int W) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int64_t b = i / ev.n, e = i - b * ev.n;
+  const float x = ev.px[(b / ev.gx) * ev.n + e], y = ev.py[(b / ev.gy) * ev.n + e],
+              wt = ev.w[(b / ev.gw) * ev.n + e];
+  const float fx = floorf(x), fy = floorf(y);
+  if (!in_bounds(fx, fy, wt, H, W)) return;  // a dropped event's tangents are never read
+  const float dx = x - fx, dy = y - fy;
+  const float tx = tg.tpx[(b / tg.gx) * ev.n + e], ty = tg.tpy[(b / tg.gy) * ev.n + e];
+  float* img = out + b * (int64_t)H * W + (int64_t)fy * W + (int64_t)fx;
+  atomicAdd(img, wt * (-tx * (1.0f - dy) - ty * (1.0f - dx)));
+  atomicAdd(img + 1, wt * (tx * (1.0f - dy) - ty * dx));
+  atomicAdd(img + W, wt * (-tx * dy + ty * (1.0f - dx)));
+  atomicAdd(img + W + 1, wt * (tx * dy + ty * dx));
+}
+
 __global__ void noop_kernel() {}
 
 unsigned int blocks_for(int64_t total) {
@@ -464,6 +504,21 @@ int iwe_vote_bwd(int variant, const float* px, const float* py, const float* w, 
     } else {
       return (int)cudaErrorInvalidValue;
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// K3: b tangent images (out zeroed by the caller) from compact (b / g*, n)
+// events and coordinate tangents. Returns cudaGetLastError() after the
+// launch.
+int iwe_vote_jvp(const float* px, const float* py, const float* w, int64_t gx, int64_t gy,
+                 int64_t gw, const float* tpx, const float* tpy, int64_t gtx, int64_t gty,
+                 float* out, int64_t b, int64_t n, int H, int W, void* stream) {
+  const Events ev{px, py, w, gx, gy, gw, n};
+  const Tangents tg{tpx, tpy, gtx, gty};
+  if (b * n > 0) {
+    vote_jvp_kernel<<<blocks_for(b * n), kThreadsG, 0, (cudaStream_t)stream>>>(ev, tg, out, b * n,
+                                                                              H, W);
   }
   return (int)cudaGetLastError();
 }

@@ -37,6 +37,11 @@ Scheduling:
   the ring has lapped, or any packet while the ring is out of step with the
   store, is gathered from the host store instead (one upload of the
   launch's events). Both give bit-identical solver inputs.
+- the programs come from the module-level pool (ops/program_pool.py, the
+  JAX package's lru_cache'd builders): a front-end leases the entry of its
+  camera, LUT, packet size, ring capacity and solver options when it is
+  built, with the device ring that entry's programs read; a later front-end
+  of the same key, once this one is collected, captures nothing.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ from .config import FrontendConfig
 from .io import native
 from .io.devring import DeviceEventRing, _next_pow2
 from .io.events import EventStore
-from .ops import device_loop, optim, warp_local
+from .ops import device_loop, optim, program_pool, warp_local
 from .utils.device import resolve_device, to_device
 from .utils.metrics import Metrics, logger
 
@@ -91,7 +96,8 @@ class Frontend:
         self.cam = cam
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.lut = to_device(np.asarray(lut, np.float32), self.device)
+        lut = np.asarray(lut, np.float32)
+        self.lut = to_device(lut, self.device)
         self.store = store if store is not None else EventStore()
         self.metrics = metrics if metrics is not None else Metrics()
 
@@ -102,11 +108,20 @@ class Frontend:
         self._lanes = torch.arange(self.packet_size, device=self.device)
 
         # The ring covers >= 16 packets of reach-back (at least 2^21 events,
-        # 16 MiB), rounded up to a power of two.
-        self._ring: Optional[DeviceEventRing] = None
-        if cfg.device_store:
-            cap = cfg.device_store_capacity or max(16 * self.packet_size, 1 << 21)
-            self._ring = DeviceEventRing(_next_pow2(cap), cam.width, device=self.device)
+        # 16 MiB), rounded up to a power of two. It belongs to the pool
+        # entry whose programs read it, and is emptied for each new owner.
+        cap = (_next_pow2(cfg.device_store_capacity or max(16 * self.packet_size, 1 << 21))
+               if cfg.device_store else 0)
+        key = ("frontend", program_pool.device_key(self.device), cam, program_pool.digest(lut),
+               self.packet_size, cap, bs, cfg.warp.blur_sigma, cfg.contrast_measure,
+               cfg.coarse_to_fine, cfg.optim)
+        self._entry = program_pool.lease(key, self, reset=_empty_ring)
+        state = self._entry.state
+        if not state:
+            state["lut"] = self.lut
+            state["ring"] = (DeviceEventRing(cap, cam.width, device=self.device)
+                             if cap else None)
+        self._ring: Optional[DeviceEventRing] = state["ring"]
 
         self._initialized = False
         # Finalize estimates as push_events returns them; the system loop
@@ -125,7 +140,6 @@ class Frontend:
         self._omega_host = np.zeros(3, np.float32)
         self._carry: Optional[device_loop.Result] = None
         self.estimates: List[AngVelEstimate] = []
-        self._packets: Optional["_PacketSolver"] = None  # the device program of the solves
 
     # ------------------------------------------------------------------
     def checkpoint(self) -> dict:
@@ -260,15 +274,8 @@ class Frontend:
 
     def _assemble(self, idx, ts, n, t_ref) -> warp_local.EventPacket:
         """A packet from the (S,) int32 LUT indices and float32 times of its
-        events, its first ``n`` lanes valid. ``n`` and ``t_ref`` may be
-        device scalars."""
-        valid = self._lanes < n
-        return warp_local.EventPacket(
-            bearings=self.lut[torch.where(valid, idx, 0)],
-            dts=warp_local.batch_midpoint_dts(torch.where(valid, ts, 0.0), valid,
-                                              self.cfg.warp.event_batch_size, t_ref),
-            weights=valid.to(torch.float32),
-        )
+        events, its first ``n`` lanes valid (``assemble``)."""
+        return assemble(self.lut, self._lanes, idx, ts, n, t_ref, self.cfg.warp.event_batch_size)
 
     def _host_events(self, xs, ys, ts) -> np.ndarray:
         """(2, S) int32: LUT indices and the bits of the float32 epoch-relative
@@ -388,11 +395,17 @@ class Frontend:
                 e.packed = (handle, i)
 
     def _solver(self, lanes: int) -> "_PacketSolver":
-        """The program with room for ``lanes`` lanes (16 at first; a wider
-        launch builds a wider one)."""
-        if self._packets is None or self._packets.capacity < lanes:
-            self._packets = _PacketSolver(self, max(16, lanes))
-        return self._packets
+        """The narrowest program of the leased entry with room for ``lanes``
+        lanes (16 at first; a wider launch builds a wider one, and the entry
+        keeps both)."""
+        programs = self._entry.programs
+        room = [c for c in programs if c >= lanes]
+        if not room:
+            cap = max(16, lanes)
+            programs[cap] = _PacketSolver(self.cfg, self.cam, self._entry.state, self.packet_size,
+                                          self.device, cap)
+            room = [cap]
+        return programs[min(room)]
 
     # ------------------------------------------------------------------
     def render_iwe_pair(self, beg: int, end: int, omega) -> Optional[np.ndarray]:
@@ -416,6 +429,25 @@ class Frontend:
         return 255.0 - normalize_minmax(stacked) * 255.0
 
 
+def assemble(lut, lanes, idx, ts, n, t_ref, batch_size: int) -> warp_local.EventPacket:
+    """A packet from the (S,) int32 LUT indices and float32 times of its
+    events, its first ``n`` lanes valid (``lanes`` is arange(S)). ``n`` and
+    ``t_ref`` may be device scalars."""
+    valid = lanes < n
+    return warp_local.EventPacket(
+        bearings=lut[torch.where(valid, idx, 0)],
+        dts=warp_local.batch_midpoint_dts(torch.where(valid, ts, 0.0), valid, batch_size, t_ref),
+        weights=valid.to(torch.float32),
+    )
+
+
+def _empty_ring(entry) -> None:
+    """A pool entry's reset for its next owner: the ring emptied."""
+    ring = entry.state["ring"]
+    if ring is not None:
+        ring.reset()
+
+
 class _PacketSolver:
     """The packets of one launch as one device program: the counterpart of
     the JAX package's _build_stride_solver(_ring) (and, with one lane, of
@@ -424,12 +456,14 @@ class _PacketSolver:
     upload, is solved (coarse and fine CG, each a device loop) when live, and
     hands its warm start on; dead lanes skip the solve under a conditional
     node. The lane count is read from the launch's inputs, so one program
-    serves every launch of up to ``capacity`` lanes."""
+    serves every launch of up to ``capacity`` lanes. It reads only its own
+    buffers and its pool entry's ``state``: the LUT and the ring."""
 
-    def __init__(self, fe: Frontend, capacity: int):
-        cfg, o, dev = fe.cfg, fe.cfg.optim, fe.device
+    def __init__(self, cfg: FrontendConfig, cam: warp_local.CameraParams, state: dict, S: int,
+                 dev, capacity: int):
+        o = cfg.optim
         self.capacity = capacity
-        S = fe.packet_size
+        lut, ring = state["lut"], state["ring"]
 
         def buf(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -445,9 +479,10 @@ class _PacketSolver:
         self.carry = buf(1, 3)
         self.rows = buf(capacity, 5)
         self.go, self.live = device_loop.flag(dev), device_loop.flag(dev)
+        lanes = torch.arange(S, device=dev)
 
         def objective(sigma):
-            return warp_local.make_local_objective(self.packet, fe.cam, sigma,
+            return warp_local.make_local_objective(self.packet, cam, sigma,
                                                    cfg.contrast_measure)
 
         kw = dict(initial_step=o.initial_step, line_search_tol=o.line_search_tol,
@@ -464,7 +499,6 @@ class _PacketSolver:
             self.coarse = optim.LaneCG(vg, f, 1, 3, dev, max_iters=o.max_line_searches // 2, **kw)
         f, vg = objective(cfg.warp.blur_sigma)
         self.fine = optim.LaneCG(vg, f, 1, 3, dev, max_iters=o.max_line_searches, **kw)
-        ring = fe._ring
 
         def start():
             self.li.zero_()
@@ -476,14 +510,15 @@ class _PacketSolver:
             lane = self.lanes_in.index_select(0, self.li)[0]
             pos0, n, t_ref = lane[0].long(), lane[1].long(), lane[2].float()
             from_ring = lane[4] > 0
-            pos = fe._lanes + torch.where(from_ring, 0, pos0)
+            pos = lanes + torch.where(from_ring, 0, pos0)
             idx, ts = self.host_in[0][pos], self.host_in[1].view(torch.float32)[pos]
             if ring is not None:
                 ridx, rts = ring.buffers
-                rpos = (fe._lanes + torch.where(from_ring, pos0, 0)) & (ring.capacity - 1)
+                rpos = (lanes + torch.where(from_ring, pos0, 0)) & (ring.capacity - 1)
                 idx = torch.where(from_ring, ridx[rpos], idx)
                 ts = torch.where(from_ring, rts[rpos], ts)
-            for b, v in zip(self.packet, fe._assemble(idx, ts, n, t_ref)):
+            packet = assemble(lut, lanes, idx, ts, n, t_ref, cfg.warp.event_batch_size)
+            for b, v in zip(self.packet, packet):
                 b.copy_(v)
             self.flag.copy_(lane[3:4])
             device_loop.set_flag(self.live, self.flag > 0)

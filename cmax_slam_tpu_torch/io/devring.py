@@ -87,12 +87,16 @@ class DeviceEventRing:
             self._ts[:n - first] = ts[first:]
         self.hi += n
 
+    def reset(self, hi: int = 0) -> None:
+        """Empty the ring; the next write goes to absolute index ``hi``."""
+        self._idx.zero_()
+        self._ts.zero_()
+        self.hi = hi
+
     def resync(self, store, t0: float) -> None:
         """Rebuild the ring from the EventStore's resident window (after a
         checkpoint restore; the ring itself is never serialized)."""
-        self._idx.zero_()
-        self._ts.zero_()
-        self.hi = store.base
+        self.reset(store.base)
         xs, ys, ts, _ = store.slice_abs(store.base, store.total)
         if len(ts):
             self.append(xs, ys, (ts - t0).astype(np.float32))

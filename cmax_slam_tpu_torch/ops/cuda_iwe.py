@@ -37,7 +37,16 @@ gradient (no path does), and has two variants, chosen by shape alone in
   (one packet, one back-end crop) and images too large to stage.
 The constants are set by tools/tune_vote_bwd.py on an H100 (PERF.md).
 
-Both kernels read each operand as a compact (B / g, N) array, flat image b
+K3 ``vote_jvp`` is the vote's forward-mode derivative, which the JAX
+package gets from forward mode through its XLA scatter vote
+(ops/scatter.py's bilinear_accumulate_scatter inside warp_pano's
+derivative_images): T tangent images from coordinate tangents, the
+floor-parametrized derivatives of the four taps that K2 differentiates. One
+variant, K1's G with other tap weights (a thread per event and tangent
+image, global atomics into a zeroed output). ``Vote.jvp`` sends coordinate
+tangents to it and a weight tangent to K1.
+
+The kernels read each operand as a compact (B / g, N) array, flat image b
 reading row b / g, so broadcast weights and coordinates are not copied per
 image (``compact_rows``); K2 writes (B, N) gradients, summed over each
 shared operand's row group by ``Vote.backward`` (``sum_rows``).
@@ -51,16 +60,16 @@ another.
 ``LAUNCHES`` counts executed kernel launches, so a run can show that its
 votes went through the kernels: ``"fwd"`` is every K1 launch and
 ``"fwd_P"``, ``"fwd_G"`` split it by variant; ``"bwd"``, ``"bwd_S"`` and
-``"bwd_G"`` do the same for K2. A wrapper counts a launch where it makes it,
-and nowhere else. A launch made while its stream is captured into a CUDA
-graph (ops/device_loop.py) runs only when the graph does, perhaps many
-times: the wrapper hands it to the recorder that ``recording`` installs,
-and the graph adds it to the counts once for every time the device ran it.
-``GRAPH_LAUNCHES`` is the part of them that ran inside graphs.
-``SHAPE_LAUNCHES``, when set to a dict, also counts launches by (kernel,
-variant, images, events, height, width). The build, the counts and the
-per-device set-up are guarded by a lock: the multi-device modes drive votes
-from several host threads.
+``"bwd_G"`` do the same for K2, ``"jvp"`` and ``"jvp_G"`` for K3. A wrapper
+counts a launch where it makes it, and nowhere else. A launch made while its
+stream is captured into a CUDA graph (ops/device_loop.py) runs only when the
+graph does, perhaps many times: the wrapper hands it to the recorder that
+``recording`` installs, and the graph adds it to the counts once for every
+time the device ran it. ``GRAPH_LAUNCHES`` is the part of them that ran
+inside graphs. ``SHAPE_LAUNCHES``, when set to a dict, also counts launches
+by (kernel, variant, images, events, height, width). The build, the counts
+and the per-device set-up are guarded by a lock: the multi-device modes
+drive votes from several host threads.
 """
 
 from __future__ import annotations
@@ -75,7 +84,8 @@ import torch
 
 from . import nvcc
 
-LAUNCHES = {"fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0}
+LAUNCHES = {"fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0,
+            "jvp": 0, "jvp_G": 0}
 GRAPH_LAUNCHES = dict.fromkeys(LAUNCHES, 0)  # the part of LAUNCHES run inside CUDA graphs
 SHAPE_LAUNCHES: dict | None = None
 _recorder: list | None = None  # launches captured into the graph being built (one at a
@@ -258,6 +268,9 @@ def _build_locked():
     lib.iwe_vote_bwd.argtypes = [i32, p, p, p, i64, i64, i64, p, p, p, p, i64, i64, i32, i32,
                                  i32, p]
     lib.iwe_vote_bwd.restype = i32
+    lib.iwe_vote_jvp.argtypes = [p, p, p, i64, i64, i64, p, p, i64, i64, p, i64, i64, i32, i32,
+                                 p]
+    lib.iwe_vote_jvp.restype = i32
     lib.iwe_noop.argtypes = [p]
     lib.iwe_noop.restype = i32
     lib.iwe_error_string.argtypes = [i32]
@@ -433,6 +446,41 @@ def vote_bwd(px: torch.Tensor, py: torch.Tensor, w: torch.Tensor, g: torch.Tenso
     return dpx, dpy, dw
 
 
+def launch_jvp(px, py, w, tpx, tpy, out, b: int, height: int, width: int) -> None:
+    """One raw K3 launch into ``out`` ((b, height, width), zeroed by the
+    caller), on the current stream; not counted and allocating nothing
+    (chip_smoke times the kernel with it)."""
+    n = px.shape[1]
+    if -(-b * n // G_THREADS) >= 1 << 31:
+        raise ValueError(f"K3 launch of {b} x {n} events exceeds the grid")
+    lib = build()
+    with torch.cuda.device(px.device):
+        stream = torch.cuda.current_stream(px.device).cuda_stream
+        err = lib.iwe_vote_jvp(
+            px.data_ptr(), py.data_ptr(), w.data_ptr(), b // px.shape[0], b // py.shape[0],
+            b // w.shape[0], tpx.data_ptr(), tpy.data_ptr(), b // tpx.shape[0],
+            b // tpy.shape[0], out.data_ptr(), b, n, height, width, stream)
+    _check("iwe_vote_jvp launch", err, lib)
+
+
+def vote_jvp(px: torch.Tensor, py: torch.Tensor, w: torch.Tensor, tpx: torch.Tensor,
+             tpy: torch.Tensor, height: int, width: int, b: int | None = None) -> torch.Tensor:
+    """K3: compact (R, N) events and coordinate tangents (tangent image i
+    reads row i // (b // R) of each; b defaults to the largest R) -> the
+    (b, height, width) tangent images of the vote along (tpx, tpy)."""
+    b = _check_events(px, py, w, b)
+    _check_events(tpx, tpy, tpx, b)
+    if tpx.shape[1] != px.shape[1] or tpx.device != px.device:
+        raise ValueError("tangents must be (R, N) arrays beside the events")
+    n = px.shape[1]
+    out = torch.zeros((b, height, width), dtype=torch.float32, device=px.device)
+    if b * n * height * width == 0:
+        return out
+    launch_jvp(px, py, w, tpx, tpy, out, b, height, width)
+    _launched("jvp", "G", (b, n, height, width))
+    return out
+
+
 def launch_noop(device: torch.device) -> None:
     """One launch of the empty kernel on ``device``'s current stream: the
     least device time any launch takes (chip_smoke's floor_ms). Not counted."""
@@ -443,15 +491,42 @@ def launch_noop(device: torch.device) -> None:
 
 
 class Vote(torch.autograd.Function):
-    """K1 forward and K2 backward (the floor-parametrized gradient), both on
-    compact operands for b images. K2 writes dw only when the weights need a
-    gradient; each gradient is summed back over its operand's row group."""
+    """K1 forward, K2 backward (the floor-parametrized gradient) and the
+    forward-mode rule (``jvp``: K3 for the coordinate tangents, K1 for a
+    weight tangent), all on compact operands for b images. K2 writes dw only
+    when the weights need a gradient; each gradient is summed back over its
+    operand's row group. The context is set up apart from the forward, so
+    ``torch.func.jvp`` takes the rule too."""
 
     @staticmethod
-    def forward(ctx, px, py, w, height: int, width: int, b: int):
-        ctx.save_for_backward(px, py, w)
-        ctx.b = b
+    def forward(px, py, w, height: int, width: int, b: int):
         return vote_fwd(px, py, w, height, width, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        px, py, w, height, width, b = inputs
+        ctx.save_for_backward(px, py, w)
+        ctx.save_for_forward(px, py, w)
+        ctx.b, ctx.hw = b, (height, width)
+
+    @staticmethod
+    def jvp(ctx, tpx, tpy, tw, *_):
+        """The images' tangent: K3 along the coordinate tangents (a missing
+        one is zero), plus K1 voting the weight tangent where the weight is
+        not zero (the vote drops weight-0 events, so its derivative there is
+        zero)."""
+        px, py, w = ctx.saved_tensors
+        (H, W), b = ctx.hw, ctx.b
+        out = None
+        if tpx is not None or tpy is not None:
+            tpx, tpy = (torch.zeros_like(px) if t is None else t.contiguous() for t in (tpx, tpy))
+            out = _TangentVote.apply(px, py, w, tpx, tpy, H, W, b)
+        if tw is not None:
+            vw = Vote.apply(px, py, torch.where(w != 0, tw, 0.0).contiguous(), H, W, b)
+            out = vw if out is None else out + vw
+        if out is None:
+            out = torch.zeros((b, H, W), dtype=torch.float32, device=px.device)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -460,6 +535,20 @@ class Vote(torch.autograd.Function):
         grads = vote_bwd(*ops, g.contiguous(), ctx.b, with_dw=need[2])
         return (*(sum_rows(d, t.shape[0]) if want else None
                   for d, t, want in zip(grads, ops, need)), None, None, None)
+
+
+class _TangentVote(torch.autograd.Function):
+    """K3 behind an autograd Function: torch.func.jvp hands Vote.jvp
+    tensors wrapped for its transform, which have no storage a kernel could
+    read; a Function's forward gets them unwrapped."""
+
+    @staticmethod
+    def forward(px, py, w, tpx, tpy, height: int, width: int, b: int):
+        return vote_jvp(px, py, w, tpx, tpy, height, width, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
 
 def bilinear_accumulate_cuda(px: torch.Tensor, py: torch.Tensor, weights: torch.Tensor,

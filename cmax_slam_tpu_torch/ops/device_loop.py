@@ -176,8 +176,8 @@ class Program:
     """One device program (see the module docstring). ``build(b)`` describes
     it; ``out`` (float32, ``n_out`` values) is what the host reads after a
     run; ``name`` keys RUNS. Its graphs share a private memory pool that no
-    other program uses, so dropping a program (a wider front-end program
-    replacing a narrower one) leaves no pool half released."""
+    other program uses, so dropping a program leaves no pool half released.
+    Programs are kept and shared through ops/program_pool.py."""
 
     def __init__(self, build_fn: Callable, n_out: int, device, *, name: str):
         self.build_fn = build_fn

@@ -31,9 +31,12 @@ once for all lanes, and lanes that have stopped keep their values through
 ``torch.where``. Whether any lane is still searching is a flag on the
 device that gates the next step: a conditional node in a CUDA graph, a host
 check on the CPU. Each lane takes the decisions ``minimize_fr_cg`` takes on
-that lane alone, and the tests hold it to that. ``cg_init``/
-``make_cg_body``/``cg_run_rounds``/``cg_finalize`` are its resumable form for
-the lane-batched tracker, whose rounds read their gates on the host.
+that lane alone, and the tests hold it to that. ``LaneCG.rounds`` resumes a
+loaded state for a bounded number of line searches (the lane-batched
+tracker's rounds, JAX's ``cg_run_rounds``). ``cg_init``/``make_cg_body``/
+``cg_run_rounds``/``cg_finalize`` are the same steps run from a CGState with
+their gates read on the host: the eager reference the tests hold those
+programs to.
 """
 
 from __future__ import annotations
@@ -379,6 +382,7 @@ class LaneCG:
         self.grow, self.active, self.keep = fl(P, dtype=b8), fl(P, dtype=b8), fl(P, dtype=b8)
         self.k = fl(1, dtype=i32)  # the sequential ladder's step in the line search
         self.j = fl(1, dtype=i32)  # the secant step in the line search
+        self.n = fl(1, dtype=i32)  # line searches done in a round (rounds)
         self.any, self.go = device_loop.flag(dev), device_loop.flag(dev)
 
     # -- state ------------------------------------------------------------
@@ -429,6 +433,30 @@ class LaneCG:
     def solve(self, b, x0: torch.Tensor) -> None:
         b.seg(lambda: self.start(x0))
         b.repeat(self.go, lambda: self.iteration(b))
+
+    def rounds(self, b, num_iters: torch.Tensor) -> None:
+        """cg_run_rounds on the state in the buffers, as program steps: up to
+        ``num_iters`` (an int32 (1,) device buffer, read at every run) line
+        searches of every lane still RUNNING under ``max_iters``; stops
+        early once no lane moves."""
+        def gate():
+            device_loop.set_flag(self.go, self.keep & (self.n < num_iters))
+
+        def first():
+            self._set_keep()
+            self.n.zero_()
+            gate()
+
+        def counted():
+            self.n.add_(1)
+            gate()
+
+        def body():
+            self.iteration(b)
+            b.seg(counted)
+
+        b.seg(first)
+        b.repeat(self.go, body)
 
     def _begin(self) -> None:
         """Direction (restart on a non-descent one) and the ladder's bracket,

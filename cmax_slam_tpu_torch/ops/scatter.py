@@ -25,7 +25,9 @@ at omega = 0).
 version below; a CUDA tensor goes to the hand-written kernels of
 ops/cuda_iwe.py or raises. Every shape takes leading batch dimensions:
 (..., N) coordinates give (..., H, W) images, so one call serves a whole
-vector-ladder sweep or the old/new split.
+vector-ladder sweep or the old/new split. ``tangent_vote`` is the vote's
+forward-mode derivative along T coordinate tangents at once (the derivative
+images), dispatched the same way (K3 on the card).
 """
 
 from __future__ import annotations
@@ -88,6 +90,59 @@ def vote(px: torch.Tensor, py: torch.Tensor, weights: torch.Tensor,
     if px.device.type != "cpu":
         raise RuntimeError(f"no vote implementation for device {px.device}")
     return bilinear_accumulate(px, py, weights, height, width)
+
+
+def bilinear_accumulate_jvp(px: torch.Tensor, py: torch.Tensor, weights: torch.Tensor,
+                            tpx: torch.Tensor, tpy: torch.Tensor, height: int,
+                            width: int) -> torch.Tensor:
+    """Plain PyTorch tangent vote: (N,) events and (T, N) coordinate
+    tangents -> (T, height, width), the derivative of ``bilinear_accumulate``
+    along each tangent (the floor held constant): per kept event
+
+        w * (-tpx (1-dy) - tpy (1-dx))  into (cy,     cx)
+        w * ( tpx (1-dy) - tpy dx)       into (cy,     cx + 1)
+        w * (-tpx dy + tpy (1-dx))       into (cy + 1, cx)
+        w * ( tpx dy + tpy dx)           into (cy + 1, cx + 1)
+
+    and nothing for a dropped one. The version K3 is held against."""
+    T = tpx.shape[0]
+    valid = inbounds_mask(px, py, height, width) & (weights != 0)
+    px = torch.where(valid, px, -2.0).float()
+    py = torch.where(valid, py, -2.0).float()
+    w = torch.where(valid, weights, 0.0).float()
+    tx = torch.where(valid, tpx, 0.0).float()
+    ty = torch.where(valid, tpy, 0.0).float()
+    fx, fy = torch.floor(px), torch.floor(py)
+    dx, dy = px - fx, py - fy
+    ix = torch.where(valid, fx, 0.0).long()
+    iy = torch.where(valid, fy, 0.0).long()
+    b = torch.arange(T, device=px.device)[:, None]
+    flat = (b * height + iy) * width + ix
+    idx = torch.cat([flat, flat + 1, flat + width, flat + width + 1], dim=-1)
+    vals = torch.cat([
+        w * (-tx * (1 - dy) - ty * (1 - dx)),
+        w * (tx * (1 - dy) - ty * dx),
+        w * (-tx * dy + ty * (1 - dx)),
+        w * (tx * dy + ty * dx),
+    ], dim=-1)
+    img = torch.zeros(T * height * width, dtype=torch.float32, device=px.device)
+    img = img.index_add(0, idx.reshape(-1), vals.reshape(-1))
+    return img.reshape(T, height, width)
+
+
+def tangent_vote(px: torch.Tensor, py: torch.Tensor, weights: torch.Tensor, tpx: torch.Tensor,
+                 tpy: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """The vote's tangent images along T coordinate tangents: (N,) events,
+    (T, N) tangents -> (T, height, width), dispatched on the tensor's
+    device: CPU -> the plain version, CUDA -> K3 (ops/cuda_iwe.py), one
+    launch for all T."""
+    if px.device.type == "cuda":
+        ops = [t.reshape(1, -1).float().contiguous() for t in (px, py, weights)]
+        return cuda_iwe.vote_jvp(*ops, tpx.float().contiguous(), tpy.float().contiguous(),
+                                 height, width, tpx.shape[0])
+    if px.device.type != "cpu":
+        raise RuntimeError(f"no vote implementation for device {px.device}")
+    return bilinear_accumulate_jvp(px, py, weights, tpx, tpy, height, width)
 
 
 def bilinear_accumulate_two(px: torch.Tensor, py: torch.Tensor, weights: torch.Tensor,

@@ -6,7 +6,10 @@ events of an ``event_batch_size`` batch share the spline pose at the batch
 midpoint (:238-251); rotation and equirectangular projection are
 component-wise tensor expressions; votes go through ops/scatter.vote; the
 gradient with respect to the 3K knot increments comes from one autograd
-pass, so the reference's 3K derivative images are never materialized.
+pass, so the reference's 3K derivative images are never materialized on the
+solver's path. ``derivative_images`` gives them for inspection
+(saveDerivativeImages): the warp's tangents by forward mode, then one
+tangent vote (K3 on the card) and the blur.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from ..calib import EquirectCamera
 from . import contrast as contrast_mod
 from .blur import gaussian_blur
 from .contrast import contrast
-from .scatter import bilinear_accumulate_two, vote
+from .scatter import bilinear_accumulate_two, tangent_vote, vote
 from .warp_local import value_and_grad
 
 
@@ -94,6 +97,40 @@ def pano_il_split(drotv, win: PanoWindow, pano: EquirectCamera, order: int):
     px, py = warp_to_pano(drotv, win, pano, order)
     return bilinear_accumulate_two(px, py, win.weights, ~win.is_old,
                                    pano.height, pano.width)
+
+
+def pano_iwe(drotv, win: PanoWindow, pano: EquirectCamera, order: int, blur_sigma: float):
+    """(IL_old, IL_new, blur(IL_old + IL_new + alpha * IG')): the split and
+    the blended, blurred optimization image at a trajectory."""
+    il_old, il_new = pano_il_split(drotv, win, pano, order)
+    image = gaussian_blur(il_old + il_new + win.alpha * win.ig_prime, blur_sigma)
+    return il_old, il_new, image
+
+
+def derivative_images(win: PanoWindow, pano: EquirectCamera, order: int,
+                      blur_sigma: float) -> torch.Tensor:
+    """Per-parameter derivative images d(image)/d(knot increments) of
+    ``pano_iwe`` at zero increments: (K, 3, H, W), as the JAX package's
+    ``jax.jacfwd`` of it gives them (the reference's saveDerivativeImages,
+    src/utils/image_utils.cpp:41-62). One forward pass: the (3K, N) tangents
+    of the warped coordinates by ``torch.func.jacfwd`` of ``warp_to_pano``
+    (plain torch ops), one tangent vote of all 3K images (K3 on the card;
+    the old and new halves of the split share the coordinates and their
+    weights sum to the window's, so one vote gives the tangent of IL_old +
+    IL_new), then the blur, which is linear (alpha and IG' are constants)."""
+    K = win.knots.shape[0]
+    zeros = torch.zeros((K, 3), dtype=torch.float32, device=win.knots.device)
+
+    def coords(drotv):
+        return torch.stack(warp_to_pano(drotv, win, pano, order))
+
+    with torch.no_grad():
+        px, py = warp_to_pano(zeros, win, pano, order)
+    J = torch.func.jacfwd(coords)(zeros).detach()  # (2, N, K, 3)
+    tangents = J.reshape(2, -1, 3 * K).transpose(1, 2)  # (2, 3K, N)
+    timg = tangent_vote(px, py, win.weights, tangents[0], tangents[1], pano.height,
+                        pano.width)
+    return gaussian_blur(timg, blur_sigma).reshape(K, 3, pano.height, pano.width)
 
 
 def make_pano_objective(win: PanoWindow, pano: EquirectCamera, order: int,

@@ -17,6 +17,9 @@ On the card, each step of a sweep evaluates every active lane's objective
 with one vote launch: a vector-ladder bracket over a bucket of 224 packets
 votes 224 x 9 = 2016 images in one K1 launch. Lanes run in lockstep inside
 a step, so ``track_batched_compacted`` drops converged lanes between rounds.
+Each round is one launch of a pooled device program (sharding.LaneSolver,
+the JAX package's jitted ``_run_round``) and one host read, the lanes'
+status and line-search counts that decide the next compaction.
 """
 
 from __future__ import annotations
@@ -29,11 +32,11 @@ import torch
 
 from ..config import FrontendConfig
 from ..io import native
-from ..ops import optim, warp_local
-from ..utils.device import resolve_device, resolve_devices
+from ..ops import optim, program_pool, warp_local
+from ..utils.device import resolve_device, resolve_devices, to_device
 from ..utils.metrics import logger
-from .sharding import (batched_packet_solve, cg_body, lane_objective, make_dp_cmax_step,
-                       map_shards)
+from .sharding import (batched_packet_solve, cg_body, lane_objective, lane_solver,
+                       make_dp_cmax_step, map_shards)
 
 
 class PacketBatch(NamedTuple):
@@ -105,6 +108,8 @@ def _init_states(bearings, dts, weights, omega0s, cam, blur_sigma, measure, opt)
 
 
 def _run_round(bearings, dts, weights, states, cam, blur_sigma, measure, opt, round_iters):
+    """One round on the host-gated lane CG (optim.cg_run_rounds): the eager
+    reference of the round programs."""
     with torch.no_grad():
         f = lane_objective(bearings, dts, weights, cam, blur_sigma, measure)
         return optim.cg_run_rounds(cg_body(f, opt), states, round_iters,
@@ -136,10 +141,14 @@ def track_batched_compacted(
     """Batched tracking without the lockstep-straggler tax.
 
     Each CMax solve advances in rounds of ``round_iters`` line searches
-    (optim.cg_run_rounds); between rounds the host reads every lane's status
-    and iteration count, drops converged lanes and re-packs the survivors
-    into a quantized bucket with ``index_select`` on the device. Total work
-    is ~the sum of per-lane iteration counts instead of lanes x max-lane.
+    (one launch of a LaneSolver program whose round count is read from a
+    device buffer, so one program serves every round of a bucket); between
+    rounds the host reads every lane's status and iteration count (the
+    program's ``out``, one wait per round), drops converged lanes and
+    re-packs the survivors into a quantized bucket: their packets and CG
+    state are copied into the program's buffers with ``index_select`` on
+    the device. Total work is ~the sum of per-lane iteration counts instead
+    of lanes x max-lane.
 
     Jacobi warm-start sweeps as in track_batched. The cold sweep only seeds
     the warm one, so it votes every ``cold_decimate``-th event of each packet
@@ -149,8 +158,8 @@ def track_batched_compacted(
 
     With ``devices``, the host compacts survivors globally every round and
     splits the bucket evenly over the list (the bucket is rounded up to a
-    multiple of the device count); each device solves its share locally and
-    the states are gathered on ``devices[0]``.
+    multiple of the device count); each device solves its share locally
+    with a program of its own and the states are gathered on ``devices[0]``.
 
     Returns (times, omegas, costs, iters) as numpy, like track_batched.
     """
@@ -166,24 +175,35 @@ def track_batched_compacted(
     else:
         home = batch.bearings.device
     devs = devices if devices is not None else [home]
+    owners = [program_pool.Owner() for _ in devs]  # each shard leases programs of its own
 
-    def run(fn, idx, lane_args):
-        """fn(bearings, dts, weights, *lane_args) on the lanes ``idx`` of the
-        sweep's packets, split evenly over the devices; a CGState on home."""
+    def init(dev, part):
+        """The CG state of the lanes ``part`` from omega0 (eager: one
+        value-and-grad of every lane)."""
+        sel = to_device(part, dev)
+        b, d, w = (t.index_select(0, sel) for t in data[dev])
+        return _init_states(b, d, w, omega0.index_select(0, to_device(part, home)).to(dev),
+                            cam, blur_sigma, measure, opt)
 
-        def shard(dev, part):
-            lanes = idx[part]
-            sel = torch.as_tensor(lanes, device=dev)
-            sel_home = torch.as_tensor(lanes, device=home)
-            return fn(*(t.index_select(0, sel) for t in data[dev]),
-                      *(a.index_select(0, sel_home).to(dev) for a in lane_args))
+    def round_shard(i, part, round_iters):
+        """One round of the lanes ``part`` on device i: (their new CG state,
+        their status and line searches on the host)."""
+        dev = devs[i]
+        lanes = idx[part]
+        prog = lane_solver(owners[i], cam, blur_sigma, measure, opt, dev, len(lanes),
+                           data[dev][1].shape[1], rounds=True)
+        sel, sel_home = to_device(lanes, dev), to_device(lanes, home)
+        with torch.no_grad():
+            prog.load(data[dev], sel)
+            for buf, t in zip(prog.cg.s, st):
+                buf.copy_(t.index_select(0, sel_home))
+            prog.round_iters.fill_(round_iters)
+            vals = prog.program.run().fetch()
+        return optim.CGState(*(t.to(home) for t in prog.cg.s)), vals
 
-        outs = map_shards(devs, shard, np.array_split(np.arange(len(idx)), len(devs)))
-        return optim.CGState(*(torch.cat([o[i].to(home) for o in outs])
-                               for i in range(len(optim.CGState._fields))))
-
-    def init(b, d, w, x0):
-        return _init_states(b, d, w, x0, cam, blur_sigma, measure, opt)
+    def gather(outs):
+        return optim.CGState(*(torch.cat([o[k] for o in outs])
+                               for k in range(len(optim.CGState._fields))))
 
     st = None
     for sweep in range(max(sweeps, 1)):
@@ -196,12 +216,15 @@ def track_batched_compacted(
             k = 1 if final else max(cold_decimate, 1)
         sweep_data = [t[:, ::k] for t in (batch.bearings, batch.dts, batch.weights)]
         data = {dev: [t.to(dev).contiguous() for t in sweep_data] for dev in set(devs)}
-        st = run(init, np.arange(Pn), [omega0])
+        parts = np.array_split(np.arange(Pn), len(devs))
+        st = gather(map_shards(devs, init, parts))
+        # cg_init leaves every lane RUNNING at 0 line searches: nothing to read.
+        status = np.full(Pn, optim.RUNNING, np.int64)
+        it = np.zeros(Pn, np.int64)
         active = np.arange(Pn)
         t_sweep = time.perf_counter()
         rounds = 0
         while True:
-            status, it = st.status.cpu().numpy(), st.it.cpu().numpy()
             active = active[(status[active] == optim.RUNNING) & (it[active] < max_ls)]
             n = len(active)
             if n == 0:
@@ -212,20 +235,26 @@ def track_batched_compacted(
             bucket = -(-bucket // len(devs)) * len(devs)
             idx = np.resize(active, bucket)  # pad by cycling (extras ignored)
             round_iters = min(round_schedule[min(rounds, len(round_schedule) - 1)], max_ls)
-
-            def step(b, d, w, *s, round_iters=round_iters):
-                return _run_round(b, d, w, optim.CGState(*s), cam, blur_sigma, measure, opt,
-                                  round_iters)
-
-            out = run(step, idx, list(st))
-            act = torch.as_tensor(active, device=home)
+            shards = np.array_split(np.arange(bucket), len(devs))
+            outs = map_shards(range(len(devs)),
+                              lambda i, part: round_shard(i, part, round_iters), shards)
+            out = gather([o[0] for o in outs])
+            vals = np.concatenate([o[1].reshape(2, -1) for o in outs], axis=1)
+            act = to_device(active, home)
             st = optim.CGState(*(t.index_copy(0, act, o[:n]) for t, o in zip(st, out)))
+            status[active], it[active] = vals[0, :n], vals[1, :n]
             rounds += 1
             logger.debug("[batched] sweep %d round %d: %d active (bucket %d)",
                          sweep, rounds, n, bucket)
         logger.info("[batched] sweep %d: %d rounds, %.3fs, mean iters %.1f", sweep, rounds,
-                    time.perf_counter() - t_sweep, float(st.it.float().mean()))
-    return batch.times, st.x.cpu().numpy(), st.f.cpu().numpy(), st.it.cpu().numpy()
+                    time.perf_counter() - t_sweep, float(it.mean()))
+    return (batch.times, *_to_host(st.x, st.f, st.it))
+
+
+def _to_host(x, f, it):
+    """(omegas, costs, iters) as numpy in one copy to the host."""
+    host = torch.cat([x, f[:, None], it[:, None].float()], dim=1).cpu().numpy()
+    return host[:, :3], host[:, 3], host[:, 4].astype(np.int32)
 
 
 def track_batched(
@@ -268,4 +297,4 @@ def track_batched(
                       batch.weights[lo:lo + chunk_size], omegas[lo:lo + chunk_size])
                 for lo in range(0, Pn, chunk_size)]
         omegas, costs, iters = (torch.cat([o[i].to(home) for o in outs]) for i in range(3))
-    return batch.times, omegas.cpu().numpy(), costs.cpu().numpy(), iters.cpu().numpy()
+    return (batch.times, *_to_host(omegas, costs, iters))

@@ -7,8 +7,14 @@ many angular-velocity solves run at once, split across devices, with no
 communication in the hot loop. The JAX package expresses that as a ``Mesh``
 and ``jax.jit`` shardings under one controller; here a list of
 ``torch.device`` plays the mesh, and one host thread per shard drives its
-device (each solve syncs the host once per step, so one thread could not
-keep two devices busy). The results are gathered on the first device.
+device. The results are gathered on the first device.
+
+Every lane-batched solve is a device program (``LaneSolver``: the JAX
+package's vmapped ``while_loop`` of ``batched_packet_solve`` and the
+vmapped ``fori_loop`` rounds of ``track_batched_compacted``), taken from
+the module-level pool (ops/program_pool.py): one program per device and
+lane shape, leased to one solve or shard at a time, so concurrent shards on
+one card get programs of their own and a later call captures nothing.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import Callable, List, Sequence
 import torch
 
 from ..config import OptimOptions
-from ..ops import optim, warp_local
+from ..ops import device_loop, optim, program_pool, warp_local
 from ..ops.contrast import contrast
 from ..utils.device import resolve_device, resolve_devices
 
@@ -55,15 +61,84 @@ def lane_objective(bearings, dts, weights, cam: warp_local.CameraParams,
     return f
 
 
+def _cg_options(opt: OptimOptions) -> dict:
+    return dict(line_search_tol=opt.line_search_tol, grad_tol=opt.grad_tol,
+                fun_tol=opt.fun_tol, max_fevals_per_linesearch=opt.max_fevals_per_linesearch,
+                stagnation_patience=opt.stagnation_patience, initial_step=opt.initial_step,
+                ladder=opt.ladder, cg_variant=opt.cg_variant,
+                secant_refine_evals=opt.secant_refine_evals)
+
+
 def cg_body(f, opt: OptimOptions, dim: int = 3):
-    """The lane-batched CG iteration for objective f with the options of opt."""
-    return optim.make_cg_body(
-        warp_local.value_and_grad(f), f, dim=dim,
-        line_search_tol=opt.line_search_tol, grad_tol=opt.grad_tol, fun_tol=opt.fun_tol,
-        max_fevals_per_linesearch=opt.max_fevals_per_linesearch,
-        stagnation_patience=opt.stagnation_patience, initial_step=opt.initial_step,
-        ladder=opt.ladder, cg_variant=opt.cg_variant,
-        secant_refine_evals=opt.secant_refine_evals)
+    """The lane-batched CG iteration for objective f with the options of
+    opt, its gates read on the host (optim.make_cg_body): the eager
+    reference of LaneSolver's programs."""
+    return optim.make_cg_body(warp_local.value_and_grad(f), f, dim=dim, **_cg_options(opt))
+
+
+class LaneSolver:
+    """P packets of S events solved as lanes of one device program over
+    static buffers (``bearings``, ``dts``, ``weights``; optim.LaneCG with
+    ``max_iters`` = max_line_searches, no trust radius). With ``rounds``
+    the program resumes the CG state loaded into ``cg.s`` for up to
+    ``round_iters`` line searches (JAX's ``_run_round``: a fixed-trip
+    masked ``fori_loop``, here stopping early once no lane moves) and its
+    ``out`` is each lane's status and line-search count, what the host
+    reads to compact the lanes; without, it is a whole solve from ``x0``
+    (JAX's vmapped ``while_loop``) and ``out`` is x, f and the count."""
+
+    def __init__(self, P: int, S: int, cam: warp_local.CameraParams, blur_sigma: float,
+                 measure: int, opt: OptimOptions, device, rounds: bool):
+        dev = torch.device(device)
+
+        def buf(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.bearings, self.dts, self.weights = buf(P, S, 3), buf(P, S), buf(P, S)
+        f = lane_objective(self.bearings, self.dts, self.weights, cam, blur_sigma, measure)
+        self.cg = cg = optim.LaneCG(warp_local.value_and_grad(f), f, P, 3, dev,
+                                    max_iters=opt.max_line_searches, **_cg_options(opt))
+        self.round_iters = buf(1, dtype=torch.int32)
+        self.x0 = buf(P, 3)
+
+        def finish():
+            s = cg.s
+            vals = ([s.status.float(), s.it.float()] if rounds
+                    else [s.x.reshape(-1), s.f, s.it.float()])
+            self.program.out.copy_(torch.cat(vals))
+
+        def build(b):
+            if rounds:
+                cg.rounds(b, self.round_iters)
+            else:
+                cg.solve(b, self.x0)
+            b.seg(finish)
+
+        self.program = device_loop.Program(build, (2 if rounds else 5) * P, dev,
+                                           name="batched.round" if rounds else "batched.solve")
+
+    def load(self, packets, sel=None) -> None:
+        """The packets ((P', S, 3), (P', S), (P', S) on the program's device)
+        into the buffers: rows ``sel`` of them (an int64 device index), else
+        all of them."""
+        for buf, t in zip((self.bearings, self.dts, self.weights), packets):
+            if sel is None:
+                buf.copy_(t)
+            else:
+                torch.index_select(t, 0, sel, out=buf)
+
+
+def lane_solver(owner, cam: warp_local.CameraParams, blur_sigma: float, measure: int,
+                opt: OptimOptions, device, P: int, S: int, rounds: bool) -> LaneSolver:
+    """The LaneSolver of this shape from the pool entry ``owner`` leases
+    for these options on ``device``."""
+    device = torch.device(device)
+    entry = program_pool.lease(("lanes", program_pool.device_key(device), cam, float(blur_sigma),
+                                int(measure), opt), owner)
+    key = (P, S, rounds)
+    if key not in entry.programs:
+        entry.programs[key] = LaneSolver(P, S, cam, blur_sigma, measure, opt, device, rounds)
+    return entry.programs[key]
 
 
 def batched_packet_solve(
@@ -75,16 +150,22 @@ def batched_packet_solve(
     """Returns solve(bearings (P,S,3), dts (P,S), weights (P,S), omega0s (P,3))
     -> (omegas (P,3), costs (P,), iters (P,)): P whole CMax solves in
     lockstep on the inputs' device, the unit of data parallelism. Every lane
-    runs until its own stop; the loop runs until the slowest lane stops."""
+    runs until its own stop; the loop runs until the slowest lane stops.
+    Each call is one launch of a pooled LaneSolver program (a WHILE loop
+    on the device) and one host wait for it; the results stay on the
+    device."""
 
     def solve(bearings, dts, weights, omega0s):
+        P, S = dts.shape
+        owner = program_pool.Owner()
+        prog = lane_solver(owner, cam, blur_sigma, measure, opt, bearings.device, P, S,
+                           rounds=False)
         with torch.no_grad():
-            f = lane_objective(bearings, dts, weights, cam, blur_sigma, measure)
-            st = optim.cg_init(warp_local.value_and_grad(f), omega0s, opt.initial_step)
-            st = optim.cg_run_rounds(cg_body(f, opt), st, opt.max_line_searches,
-                                     opt.max_line_searches)
-            res = optim.cg_finalize(st, opt.max_line_searches)
-        return res.x, res.fun, res.iters
+            prog.load((bearings, dts, weights))
+            prog.x0.copy_(omega0s)
+            prog.program.run().fetch()
+            s = prog.cg.s
+            return s.x.clone(), s.f.clone(), s.it.clone()
 
     return solve
 

@@ -8,6 +8,7 @@ import torch
 
 from cmax_slam_tpu.io.devring import DeviceEventRing as JDeviceEventRing
 from cmax_slam_tpu_torch.config import FrontendConfig, WarpOptions
+from cmax_slam_tpu_torch import frontend
 from cmax_slam_tpu_torch.frontend import Frontend
 from cmax_slam_tpu_torch.io import synthetic
 from cmax_slam_tpu_torch.io.devring import DeviceEventRing, _next_pow2
@@ -128,7 +129,7 @@ def test_ring_packet_equals_host_packet(capacity):
                          device_store_capacity=capacity)
     fe = Frontend(CameraParams(F, F, W / 2, H / 2, W, H), lut, cfg, device="cpu")
     checked, wrapped = 0, 0
-    assemble, launch = fe._assemble, fe._launch
+    assemble, launch = frontend.assemble, fe._launch
     gathered = []  # the packets one launch's program assembled, lane by lane
 
     def spy_assemble(*args):
@@ -142,7 +143,7 @@ def test_ring_packet_equals_host_packet(capacity):
         ring = [e is not None and fl > 0 and fe._from_ring(e.span[0])
                 for e, fl in zip(ests, flags)]
         launch(ests, flags)
-        for est, from_ring, packet in zip(ests, ring, gathered):
+        for est, from_ring, packet in zip(ests, ring, list(gathered)):
             if not from_ring:
                 continue
             beg, end = est.span
@@ -154,10 +155,13 @@ def test_ring_packet_equals_host_packet(capacity):
             cap = fe._ring.capacity
             wrapped += (beg & (cap - 1)) + fe.packet_size > cap
 
-    fe._assemble, fe._launch = spy_assemble, check
-    for i in range(0, len(ev.ts), 3000):
-        fe.push_events(ev.xs[i:i + 3000], ev.ys[i:i + 3000], ev.ts[i:i + 3000],
-                       ev.pols[i:i + 3000])
+    frontend.assemble, fe._launch = spy_assemble, check
+    try:
+        for i in range(0, len(ev.ts), 3000):
+            fe.push_events(ev.xs[i:i + 3000], ev.ys[i:i + 3000], ev.ts[i:i + 3000],
+                           ev.pols[i:i + 3000])
+    finally:
+        frontend.assemble = assemble
     assert checked >= 5 and fe.metrics.counters["frontend.ring_packets"] == checked
     assert checked == sum(bool(np.any(e.omega != 0)) for e in fe.estimates)
     assert fe._ring.capacity == (1 << 21 if capacity == 0 else capacity)

@@ -55,14 +55,15 @@ def test_importing_every_module_needs_no_jax_and_builds_nothing(tmp_path):
     expected = {"cmax_slam_tpu_torch." + m for m in (
         "backend", "calib", "config", "frontend", "lie", "spline", "system",
         "ops.scatter", "ops.cuda_iwe", "ops.blur", "ops.contrast", "ops.warp_local",
-        "ops.optim", "ops.warp_pano", "io.events", "io.native", "io.synthetic", "io.devring",
+        "ops.optim", "ops.warp_pano", "ops.device_loop", "ops.program_pool", "io.events", "io.native", "io.synthetic", "io.devring",
         "utils.metrics", "utils.evaluate", "utils.device", "cli", "io.streams", "io.rosbag",
         "utils.image", "parallel", "parallel.sharding", "parallel.batched",
         "parallel.window_shard", "parallel.replay")}
     assert expected <= set(res["names"])
     assert not res["preloaded"]
     assert not res["lib"] and res["launches"] == {
-        "fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0}
+        "fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0, "jvp": 0,
+        "jvp_G": 0}
     assert res["built"] == before
 
 

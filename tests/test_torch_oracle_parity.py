@@ -309,37 +309,78 @@ def _trace_port(monkeypatch, solves):
     """Records every back-end (sequential-ladder) solve of the port into
     ``solves``: a list of line searches each, with f0, the bracket's values,
     each secant step's (f, g.u, |g|), and the result (f, |g|, ok, and
-    whether the gradient it returns is its start gradient)."""
+    whether the gradient it returns is its start gradient). The back-end's
+    solves are ``optim.LaneCG`` programs (one lane), which run their steps
+    eagerly on the CPU: a solve starts at ``start``, a line search at
+    ``_begin``, each bracket step (``_bracket_step``) evaluates f once and
+    each secant step (``_refine_step``) f and g once, and ``_end`` takes the
+    line search's outcome."""
     from cmax_slam_tpu_torch.ops import optim as topt
 
-    search, minimize = topt._line_search, topt.minimize_fr_cg
+    cls = topt.LaneCG
+    start, begin, bracket, refine, end = (cls.start, cls._begin, cls._bracket_step,
+                                          cls._refine_step, cls._end)
 
-    def traced_minimize(*a, **kw):
-        if kw.get("ladder", "sequential") == "sequential":
+    def sequential(cg):
+        return cg.ladder == "sequential" and cg.s.x.shape[0] == 1
+
+    def traced_start(cg, x0):
+        if sequential(cg):
             solves.append([])
-        return minimize(*a, **kw)
+        return start(cg, x0)
 
-    def traced_search(f_fn, vg_fn, x, f0, g0, u, alpha0, tol, max_evals, refine_evals):
-        rec = {"f0": float(f0), "tol": float(tol), "bracket": [], "secant": []}
-        solves[-1].append(rec)
+    def traced_begin(cg):
+        begin(cg)
+        if sequential(cg) and bool(cg.keep[0]):
+            solves[-1].append({"f0": float(cg.s.f[0]), "tol": float(cg.tol), "bracket": [],
+                               "secant": []})
+
+    def traced_bracket(cg):
+        if not sequential(cg):
+            return bracket(cg)
+        f = cg.f
 
         def f_rec(xq):
-            f = f_fn(xq)
-            rec["bracket"].append(float(f))
-            return f
+            v = f(xq)
+            solves[-1][-1]["bracket"].append(float(v[0]))
+            return v
+
+        cg.f = f_rec
+        try:
+            bracket(cg)
+        finally:
+            cg.f = f
+
+    def traced_refine(cg):
+        if not sequential(cg):
+            return refine(cg)
+        vg = cg.vg
 
         def vg_rec(xq):
-            f, g = vg_fn(xq)
-            rec["secant"].append((float(f), float(torch.dot(g, u)), float(torch.linalg.norm(g))))
-            return f, g
+            v, g = vg(xq)
+            solves[-1][-1]["secant"].append((float(v[0]), float(topt._dot(g, cg.u)[0]),
+                                             float(torch.linalg.norm(g[0]))))
+            return v, g
 
-        a, f, g, ok = search(f_rec, vg_rec, x, f0, g0, u, alpha0, tol, max_evals, refine_evals)
-        rec.update(f=float(f), gnorm=float(torch.linalg.norm(g)), ok=bool(ok),
-                   stale=bool(ok) and bool(torch.equal(g, g0)))
-        return a, f, g, ok
+        cg.vg = vg_rec
+        try:
+            refine(cg)
+        finally:
+            cg.vg = vg
 
-    monkeypatch.setattr(topt, "minimize_fr_cg", traced_minimize)
-    monkeypatch.setattr(topt, "_line_search", traced_search)
+    def traced_end(cg):
+        if sequential(cg) and bool(cg.keep[0]):
+            ok = bool(cg.grow[0])
+            f = cg.fb[0] if ok else cg.s.f[0]
+            g = cg.gb[0] if ok else cg.s.g[0]
+            solves[-1][-1].update(f=float(f), gnorm=float(torch.linalg.norm(g)), ok=ok,
+                                  stale=ok and bool(torch.equal(cg.gb[0], cg.s.g[0])))
+        return end(cg)
+
+    for name, fn in (("start", traced_start), ("_begin", traced_begin),
+                     ("_bracket_step", traced_bracket), ("_refine_step", traced_refine),
+                     ("_end", traced_end)):
+        monkeypatch.setattr(cls, name, fn)
 
 
 def _trace_jax(monkeypatch, events):

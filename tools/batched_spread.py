@@ -70,19 +70,18 @@ def track(pb, cam, cfg):
 
 def solve_alone(pb, k, x0, cam, cfg, device):
     """Packet k from warm start x0 on ``device``: through the lane-batched CG
-    as a bucket of one lane, and through the sequential chain's solver.
-    Returns {route: (omega, cost, iters)}."""
+    program as a bucket of one lane (sharding.batched_packet_solve, the
+    tracker's LaneSolver run whole), and through the sequential chain's
+    solver. Returns {route: (omega, cost, iters)}."""
     from cmax_slam_tpu_torch.ops import optim, warp_local
-    from cmax_slam_tpu_torch.parallel import batched
+    from cmax_slam_tpu_torch.parallel import sharding
 
     o = cfg.optim
     data = [t[k:k + 1].to(device) for t in (pb.bearings, pb.dts, pb.weights)]
     x = torch.as_tensor(x0[None], dtype=torch.float32, device=device)
-    args = (cam, cfg.warp.blur_sigma, cfg.contrast_measure, o)
-    st = batched._init_states(*data, x, *args)
-    while int(st.status[0]) == optim.RUNNING and int(st.it[0]) < o.max_line_searches:
-        st = batched._run_round(*data, st, *args, o.max_line_searches)
-    out = {"lanes": (st.x[0].cpu().numpy(), float(st.f[0]), int(st.it[0]))}
+    solve = sharding.batched_packet_solve(cam, cfg.warp.blur_sigma, cfg.contrast_measure, o)
+    xs, fs, its = solve(*data, x)
+    out = {"lanes": (xs[0].cpu().numpy(), float(fs[0]), int(its[0]))}
     packet = warp_local.EventPacket(*(t[0] for t in data))
     f, vg = warp_local.make_local_objective(packet, cam, cfg.warp.blur_sigma,
                                             cfg.contrast_measure)
