@@ -34,6 +34,16 @@ Phases, in order; any failure exits non-zero:
    dropped events (their NaN tangents never read) and dropped events alone
    voting zero; device time with its zero fill, the fill alone and K3 alone
    beside the bound, the launch floor, wrapper and plain times.
+   Then K4 and K5 (csrc/pano_vote.cu: the back-end objective's spline, warp
+   and vote, forward and backward) against their plain version
+   (warp_pano.pano_vote_plain and autograd) at phase 4's crop window (6
+   knots, 1 024 batches with weight-0 padding, a 384x384 crop whose border
+   drops events), the cubic spline with 3 candidates, the full 512x1024
+   panorama on the atan2 seam and 768 000 events on 2048x4096: the image
+   within 1e-5 of its largest pixel (pixels past it counted), the gradient
+   within rtol 2e-3, atol 2e-6 of its scale and exactly 0 on the frozen
+   knot; device times in turns beside the bound and the launch floor, the
+   wrapper's, the plain version's and the composed route's (K1/K2) times.
    Then the loop predicate: a WHILE node with a nested IF node run as one
    graph against the same program with its gates read on the host (equal
    results and predicate executions), with the time per iteration of each
@@ -57,9 +67,15 @@ Phases, in order; any failure exits non-zero:
    the explicit waits by call site); each window comes back from step() or
    flush() exactly once. Prints graph launches per path, the loop
    predicate's executions, captures and their seconds, the waits per
-   packet, per stride and per window and the peak device memory. A captured evaluation
-   of the packet and of the crop objective must match the same objective on
-   the plain vote on the card, and the graphed packet solves minimize_fr_cg
+   packet, per stride and per window and the peak device memory; K4 and K5
+   must have run. A captured evaluation
+   of the packet objective must match the same objective on the plain vote
+   on the card, and one of the crop objective (through K4/K5) the composed
+   route (K1/K2) and the plain version; each objective's evaluation
+   (packet, crop and full panorama, the latter two through K4/K5 and
+   composed), value-only and value-and-grad, captured alone: its nodes,
+   replay time and device time per kernel (split_objectives); the graphed
+   packet solves minimize_fr_cg
    (the host loop) solving the same packets from the same warm starts
    (median |omega difference| < 0.01 rad/s); the derivative images of
    phase 4's widest window program's last window (derivative_images through
@@ -124,13 +140,16 @@ images, the small ring, the cubic system, the resume pair, the CLI run of
 phase 5, the second batched call of phase 6 and the window and replay runs
 of phase 7, each counted from 0), error, times and bound, and the same per
 variant (K1: G, P), with K1's launches on the system path by shape bucket;
-K3's launches are those of the derivative-images path; the last line is ``{"ok": true,
+K3's launches are those of the derivative-images path; K4's and K5's by
+path, spline order and shape, K4's with the captured crop evaluation's
+nodes and time through K4/K5 and through the composed route; the last line is ``{"ok": true,
 "device": {...}}``. Imports
 neither jax nor the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -183,6 +202,25 @@ FLOPS_PER_EVENT = {"fwd": 18, "bwd": 27, "jvp": 22}
 # 15 knot parameters (phase 7's window holds 84 700 events; derivative_images
 # launches it), and a small one on the camera image.
 JVP_SHAPES = (("window", 15, 84_700, 512, 1024), ("small", 4, 10_000, 180, 240))
+# K4/K5's shapes (tag: spline order, M candidates, window span in s,
+# events after the back-end's bucketing, image: ("crop", H, W) on the ijrr
+# 512x1024 panorama or the ("full", H, W) panorama): phase 4's crop window
+# (6 knots, 1 024 batches of 100 events, some of them weight-0 padding, a
+# 384x384 crop whose border drops some events), the vector ladder's 3
+# candidates on the cubic spline, the full ijrr panorama with the window on
+# the atan2 seam, and the headroom shape: 2 s of the stream, 768 000 events
+# on the ecrot_real preset's 2048x4096 panorama.
+PANO_SHAPES = (
+    ("crop", 2, 1, 0.25, 102_400, ("crop", 384, 384)),
+    ("cubic", 4, 3, 0.25, 102_400, ("crop", 384, 384)),
+    ("pano", 2, 1, 0.25, 102_400, ("full", 512, 1024)),
+    ("headroom", 2, 1, 2.0, 768_000, ("full", 2048, 4096)),
+)
+# Operations per live event and candidate, for K4/K5's bound: K4 the
+# rotation (15), the norm, atan2, asin and the projection (about 60 as the
+# math library evaluates them) and the vote (18); K5 the same forward, K2's
+# 27 and the chain to dL/dR (about 40).
+PANO_FLOPS_PER_EVENT = {"pano_fwd": 93, "pano_bwd": 160}
 # K2's modes: "full" writes dw too (the TPU kernel's whole function),
 # "paths" does not (as every path calls it: no path differentiates weights).
 BWD_MODES = {"full": True, "paths": False}
@@ -687,6 +725,194 @@ def check_jvp(rng, floor_ms: float) -> dict:
     return out
 
 
+def pano_bound(kernel: str, M: int, N: int, live: int, B: int, K: int, order: int, H: int,
+               W: int) -> dict:
+    """The least time of one K4 or K5 launch (see HBM_BYTES_PER_S): the
+    bearings and weights read once (16 bytes per event), the spline basis,
+    knots and increments, and the M images written (K4) or gathered (K5,
+    which also writes dL/ddelta); operations counted on the ``live``
+    (weight != 0) events of each candidate."""
+    nbytes = 4 * (4 * N + B * (1 + order) + 5 * K + 3 * M * K + M * H * W)
+    if kernel == "pano_bwd":
+        nbytes += 4 * 3 * M * K
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = PANO_FLOPS_PER_EVENT[kernel] * M * live / FP32_FLOPS * 1e3
+    return {"bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def pano_case(order: int, span: float, n_events: int, image: tuple, device: str = "cuda",
+              seed: int = 0):
+    """A back-end window of the stream for K4/K5 (make_window: the true
+    trajectory perturbed, the first knot frozen, batches of 100), cut or
+    padded with weight-0 events to ``n_events`` as the back-end buckets
+    them; ``image`` ("crop", H, W) places an H x W crop on the 512x1024
+    panorama, shifted right of the events' footprint so its border drops
+    some of them, ("full", H, W) is the H x W panorama with the window
+    turned onto the atan2 seam. Returns (window, panorama, spline basis,
+    origin or None, (H, W))."""
+    import torch
+    from cmax_slam_tpu_torch import spline
+    from cmax_slam_tpu_torch.calib import EquirectCamera
+    from cmax_slam_tpu_torch.ops import warp_pano
+
+    ev, omega, calib = make_stream(2.0)
+    kind, H, W = image
+    pano_hw = (512, 1024) if kind == "crop" else (H, W)
+    pano = EquirectCamera(width=pano_hw[1], height=pano_hw[0])
+    t_lo = 0.5 if span < 1.0 else 0.0
+    win = make_window(ev, omega, calib, pano_hw, device, t_lo=t_lo, span=span, seed=seed)
+    bs = 100
+    n = min(win.weights.shape[0], n_events - n_events // 20 // bs * bs)  # 5% padding
+    win = win._replace(bearings=win.bearings[:, :n], batch_times=win.batch_times[:n // bs],
+                       weights=win.weights[:n], is_old=win.is_old[:n])
+    if n < n_events:  # padding as the back-end's: pixel 0's bearing, weight 0, time 0 - t_lo
+        pad = n_events - n
+        win = win._replace(
+            bearings=torch.cat([win.bearings, win.bearings[:, :1].expand(3, pad)], 1).contiguous(),
+            batch_times=torch.cat([win.batch_times, torch.full((pad // bs,), -t_lo,
+                                                               device=device)]),
+            weights=torch.cat([win.weights, torch.zeros(pad, device=device)]),
+            is_old=torch.cat([win.is_old, torch.zeros(pad, dtype=torch.bool, device=device)]))
+    knots = win.knots.cpu().numpy().astype(np.float64)
+    K = knots.shape[0]
+    if kind == "full":  # turn the window about y so its middle looks along phi = pi
+        d = spline._np_quat_rotmat_batch(knots[K // 2][None])[0] @ np.array([0.0, 0.0, 1.0])
+        q_yaw = spline._np_quat_exp(np.array([0.0, np.pi - np.arctan2(d[0], d[2]), 0.0]))
+        knots = np.stack([spline._np_quat_mul(q_yaw, q) for q in knots])
+        win = win._replace(knots=torch.tensor(knots, dtype=torch.float32, device=device))
+    basis = spline.segment_basis(win.batch_times, win.t0, win.dt_knots, K, order)
+    origin = None
+    if kind == "crop":
+        with torch.no_grad():
+            px, py = warp_pano.warp_to_pano(torch.zeros((K, 3), device=device), win, pano, order,
+                                            basis)
+        live = win.weights > 0
+        cx, cy = (0.5 * float(t[live].min() + t[live].max()) for t in (px, py))
+        x0 = min(max(int(round(cx - W / 2)) + W // 8, 0), pano.width - W)
+        y0 = min(max(int(round(cy - H / 2)), 0), pano.height - H)
+        origin = torch.tensor([x0, y0], dtype=torch.float32, device=device)
+    return win, pano, basis, origin, (H, W)
+
+
+def check_pano_vote(rng, floor_ms: float) -> dict:
+    """Phase 3's K4/K5 part: the back-end objective's event chain through
+    the kernels against its plain version (warp_pano.pano_vote_plain, with
+    autograd for the gradient) on the card at PANO_SHAPES: the image within
+    1e-5 of its largest pixel (K4 rounds its coordinates as the plain
+    version does; the atomics sum in a run-dependent order), the pixels
+    past that bound counted; dL/ddelta within rtol 2e-3, atol 2e-6 of its
+    scale, exactly 0 on the frozen knot. Device times in turns (K4 with the
+    zero fill of its images, K5 with the fill of its counter, K4 alone, the
+    fill alone) beside the bound and the launch floor; the wrapper's, the
+    plain version's and the composed route's (warp_to_pano in torch, K1/K2)
+    times. No one PyTorch call computes the function (library_ms null).
+    Returns per kernel its numbers per shape and the max error."""
+    import torch
+    from cmax_slam_tpu_torch.ops import cuda_pano_vote, warp_pano
+
+    out = {k: {"max_abs_err": 0.0, "by_shape": {}} for k in ("pano_fwd", "pano_bwd")}
+    for tag, order, M, span, n_events, image in PANO_SHAPES:
+        win, pano, basis, origin, hw = pano_case(order, span, n_events, image)
+        K, B, N = win.knots.shape[0], win.batch_times.shape[0], win.weights.shape[0]
+        live = int((win.weights != 0).sum())
+        delta = torch.tensor(rng.normal(size=(M, K, 3)) * 2e-3, dtype=torch.float32,
+                             device="cuda")
+        if M > 1:
+            delta[0] = 0.0  # the zero increment: exp's small-angle branch at every knot
+        args = (win, pano, order, hw, origin, basis)
+        ref = warp_pano.pano_vote_plain(delta, *args)
+        got = warp_pano.pano_vote(delta, *args)
+        torch.cuda.synchronize()
+        tol = 1e-5 * max(1.0, float(ref.abs().max()))
+        diff = (got - ref).abs()
+        err, parted = float(diff.max()), int((diff > tol).sum())
+        g = torch.tensor(rng.normal(size=(M, *hw)), dtype=torch.float32, device="cuda")
+        routes = {"fused": warp_pano.pano_vote, "composed": warp_pano.pano_vote_composed,
+                  "plain": warp_pano.pano_vote_plain}
+        grads = {}
+        for name in ("plain", "fused"):
+            d = delta.clone().requires_grad_(True)
+            img = routes[name](d, *args)
+            grads[name] = torch.autograd.grad(img, d, g)[0]
+        scale = float(grads["plain"].abs().max())
+        g_err = float((grads["fused"] - grads["plain"]).abs().max())
+        g_tol = 2e-3 * scale + 2e-6
+        frozen = win.free_mask == 0
+        frozen_zero = not bool(grads["fused"][:, frozen].any())
+        ok = (got.shape == ref.shape and bool(torch.isfinite(got).all()) and err <= tol
+              and bool(torch.isfinite(grads["fused"]).all()) and g_err <= g_tol and frozen_zero)
+
+        ops = cuda_pano_vote.prepare(delta, win, basis, pano, order, origin)
+        img = torch.empty((M, *hw), device="cuda")
+        part, counter = cuda_pano_vote.bwd_scratch(ops)
+        dd = torch.empty_like(ops.delta)
+
+        def k4(fill=True):
+            if fill:
+                img.zero_()
+            cuda_pano_vote.launch_fwd(ops, img, *hw)
+
+        def k5():
+            counter.zero_()
+            cuda_pano_vote.launch_bwd(ops, g, part, counter, dd)
+
+        timed = {"K4": k4, "K5": k5, "K4_alone": lambda: k4(False), "fill": img.zero_}
+        dev_t = {v: [] for v in timed}
+        for v in ("K4", "K5", "K4_alone", "fill", "fill", "K4_alone", "K5", "K4"):
+            dev_t[v].append(device_ms(timed[v])[0])
+        d = delta.clone().requires_grad_(True)
+        plain_img = warp_pano.pano_vote_plain(d, *args)
+        ms = {
+            "pano_fwd": _time_ms(lambda: warp_pano.pano_vote(delta, *args)),
+            "pano_bwd": _time_ms(lambda: cuda_pano_vote.pano_vote_bwd(ops, g)),
+            "plain_fwd": _time_ms(lambda: warp_pano.pano_vote_plain(delta, *args)),
+            "plain_bwd": _time_ms(lambda: torch.autograd.grad(plain_img, d, g,
+                                                              retain_graph=True)),
+            "composed_fwd": _time_ms(lambda: warp_pano.pano_vote_composed(delta, *args)),
+        }
+        for name, images in routes.items():
+            def fwd_bwd(images=images):
+                dl = delta.clone().requires_grad_(True)
+                torch.autograd.grad(images(dl, *args), dl, g)
+            ms[f"{name}_fwd_bwd"] = _time_ms(fwd_bwd)
+        del plain_img, d
+        entry = {"order": order, "M": M, "events": N, "live_events": live, "batches": B,
+                 "knots": K, "image": list(image), "max_abs_err": err, "tol": tol,
+                 "pixels_past_tol": parted, "g_max_abs_err": g_err, "g_tol": g_tol,
+                 "g_scale": scale, "frozen_knot_zero": frozen_zero, "floor_ms": floor_ms,
+                 "fill_ms": dev_t["fill"], "k4_alone_ms": dev_t["K4_alone"], "ms": ms}
+        for k, dev in (("pano_fwd", dev_t["K4"]), ("pano_bwd", dev_t["K5"])):
+            bd = pano_bound(k, M, N, live, B, K, order, *hw)
+            e = entry | bd | {"device_ms": float(np.mean(dev)), "device_ms_turns": dev,
+                              "wrapper_ms": ms[k],
+                              "plain_ms": ms["plain_fwd" if k == "pano_fwd" else "plain_bwd"]}
+            out[k]["by_shape"][tag] = e
+            out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err if k == "pano_fwd" else g_err)
+        _log(f"pano_vote {tag:8s} order {order} M={M} N={N} ({live} live) B={B} K={K} "
+             f"{image[0]} {hw[0]}x{hw[1]}: K4 max_abs_err {err:.3e} (tol {tol:.3e}, "
+             f"{parted} pixels past it); K5 max_abs_err {g_err:.3e} (tol {g_tol:.3e}, scale "
+             f"{scale:.3e}), frozen knot exactly 0 {frozen_zero}; device ms in turns K4 with "
+             f"its fill {'/'.join(f'{a:.4f}' for a in dev_t['K4'])}, K5 with its counter fill "
+             f"{'/'.join(f'{a:.4f}' for a in dev_t['K5'])}, K4 alone "
+             f"{'/'.join(f'{a:.4f}' for a in dev_t['K4_alone'])}, fill "
+             f"{'/'.join(f'{a:.4f}' for a in dev_t['fill'])}; bound K4 "
+             f"{out['pano_fwd']['by_shape'][tag]['bound_ms'] * 1e3:.2f} us, K5 "
+             f"{out['pano_bwd']['by_shape'][tag]['bound_ms'] * 1e3:.2f} us "
+             f"({out['pano_fwd']['by_shape'][tag]['bound_by']}); floor "
+             f"{floor_ms * 1e3:.2f} us; ms {json.dumps(ms)}")
+        if not ok:
+            raise AssertionError(f"pano_vote {tag}: K4 err {err} (tol {tol}, {parted} pixels), "
+                                 f"K5 err {g_err} (tol {g_tol}), frozen knot zero {frozen_zero}")
+        del img, got, ref, grads, part, counter, dd, ops
+    for k, v in out.items():
+        rep = v["by_shape"][PANO_SHAPES[0][0]]
+        v.update(shape=PANO_SHAPES[0][0], ms=rep["wrapper_ms"], device_ms=rep["device_ms"],
+                 plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+                 floor_ms=floor_ms)
+    return out
+
+
 def _rot_fn(omega):
     """Vectorized R(t) = exp(omega t) for the synthetic generator."""
     theta = np.linalg.norm(omega)
@@ -972,12 +1198,15 @@ def _fwd_bucket(b: int, H: int, W: int, cam_hw, pano_hw) -> str:
     return "crop" if b == 1 else f"crop b={b}"
 
 
-def _spy_fwd_shapes(tally: dict, cam_hw, pano_hw):
+def _spy_fwd_shapes(tally: dict, cam_hw, pano_hw, pano_tally: dict | None = None):
     """Count each executed K1 launch into ``tally`` by its shape bucket:
     launches, events and launches per planned variant, from the wrapper's
     own counts by shape (cuda_iwe.SHAPE_LAUNCHES: a launch inside a CUDA
-    graph counts once per execution). Returns the function that fills
-    ``tally`` and stops the counting."""
+    graph counts once per execution); K4 and K5 launches likewise into
+    ``pano_tally``, by kernel and image ("pano_fwd crop", "pano_bwd
+    panorama", "... M=3" for a batch of candidates), variant the spline
+    order. Returns the function that fills the tallies and stops the
+    counting."""
     from cmax_slam_tpu_torch.ops import cuda_iwe
 
     cuda_iwe.SHAPE_LAUNCHES = {}
@@ -985,10 +1214,14 @@ def _spy_fwd_shapes(tally: dict, cam_hw, pano_hw):
     def restore():
         seen, cuda_iwe.SHAPE_LAUNCHES = cuda_iwe.SHAPE_LAUNCHES, None
         for (kernel, variant, b, n, height, width), count in seen.items():
-            if kernel != "fwd":
+            if kernel == "fwd":
+                bucket, into = _fwd_bucket(b, height, width, cam_hw, pano_hw), tally
+            elif kernel.startswith("pano_") and pano_tally is not None:
+                image = "panorama" if (height, width) == pano_hw else "crop"
+                bucket, into = f"{kernel} {image}" + (f" M={b}" if b > 1 else ""), pano_tally
+            else:
                 continue
-            s = tally.setdefault(_fwd_bucket(b, height, width, cam_hw, pano_hw),
-                                 {"launches": 0, "events": 0, "variants": {}})
+            s = into.setdefault(bucket, {"launches": 0, "events": 0, "variants": {}})
             s["launches"] += count
             s["events"] += count * b * n
             s["variants"][variant] = s["variants"].get(variant, 0) + count
@@ -997,7 +1230,8 @@ def _spy_fwd_shapes(tally: dict, cam_hw, pano_hw):
 
 
 def run_system(device: str = "cuda", overrides=None, label: str = "system",
-               duration: float = 2.0, shapes: dict | None = None, audit: bool = False):
+               duration: float = 2.0, shapes: dict | None = None, audit: bool = False,
+               pano_shapes: dict | None = None):
     """Phase 4 (and the cubic phase): the stock preset, with ``overrides``
     (dotted config keys), through the public entry points. Returns
     (launches during the run, {check: passed}, the (T, 4) ang_vel_log, the
@@ -1024,7 +1258,7 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
     returned = _spy_steps(slam.backend)
     pano = cfg.backend.pano_map
     restore = (_spy_fwd_shapes(shapes, (calib.height, calib.width),
-                               (pano.pano_height, pano.pano_width))
+                               (pano.pano_height, pano.pano_width), pano_shapes)
                if shapes is not None else (lambda: None))
 
     _reset_launches()
@@ -1073,6 +1307,7 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
         "state on the device": all(t.device.type == device for t in (
             be.IG, be.update_times, be.lut_dev, slam.frontend.lut)),
         "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+        "K4 and K5 launched": launches["pano_fwd"] > 0 and launches["pano_bwd"] > 0,
         ">= 15 BA windows": n_ba >= 15,
         "finite omega log": log.shape[1] == 4 and bool(np.isfinite(log).all()),
         "RMS < 0.3 deg": rms < 0.3,
@@ -1380,6 +1615,7 @@ def run_resume(device: str = "cuda", duration: float = 1.0):
         "same refined-pose times": len(t_a) == len(t_c) and np.allclose(t_a, t_c, atol=1e-9),
         "resumed vs uninterrupted RMS < 0.05 deg": bool(rms < 0.05),
         "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+        "K4 and K5 launched": launches["pano_fwd"] > 0 and launches["pano_bwd"] > 0,
     }
     return launches, checks
 
@@ -1485,6 +1721,7 @@ def run_cli(device: str = "cuda", duration: float = 2.0):
                                   and any(f.startswith("pano_map_") for f in files)),
             "K1 in IWE renders": render_launches[0] > 0,
             "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+            "K4 and K5 launched": launches["pano_fwd"] > 0 and launches["pano_bwd"] > 0,
             "every event read": stats["events"] == n_parsed == n,
             ">= 15 windows": stats["windows"] >= 15,
             "refine ran": stats["metrics"]["counters"].get("backend.refine_windows", 0) > 0,
@@ -1729,6 +1966,7 @@ def run_replay(devices=("cuda:0", "cuda:0"), duration: float = 2.0):
             a is not b for a, b in zip(*entries)),
         "every segment ran its back-end": all(w >= 2 for w in wins),
         "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+        "K4 and K5 launched": launches["pano_fwd"] > 0 and launches["pano_bwd"] > 0,
     }
     return launches, checks
 
@@ -1817,35 +2055,87 @@ def check_loop_pred() -> dict:
             "in_flight_ok": in_flight_ok, "executions": preds}
 
 
-def check_captured_objectives(slam, ev) -> dict:
-    """A captured evaluation of the packet objective and of the back-end
-    crop objective (value and gradient, K1 and K2 inside the graph) against
-    the same objective on the plain vote on the card, at phase 4's shapes.
-    K1 sums with atomics in a run-dependent order: f within rtol 1e-5, g
-    within rtol 2e-3, atol 2e-6 of its scale."""
+@contextlib.contextmanager
+def _images_by(images):
+    """While the block runs, the back-end objectives take their images from
+    ``images`` (warp_pano.pano_vote_composed or pano_vote_plain) in place of
+    warp_pano.pano_vote (K4/K5); None changes nothing."""
+    from cmax_slam_tpu_torch.ops import warp_pano
+
+    saved = warp_pano.pano_vote
+    warp_pano.pano_vote = images or saved
+    try:
+        yield
+    finally:
+        warp_pano.pano_vote = saved
+
+
+def _objective_cases(slam, ev) -> dict:
+    """Phase 4's objectives at its shapes, {name: (f, value_and_grad, x,
+    images)}: the packet objective of a solved packet, and on the window
+    loaded last into a crop program (none if phase 4 ran no crop window) the
+    crop objective and the full-panorama objective, each through K4/K5
+    ("fused", the main path: images None) and the composed route
+    (warp_to_pano in torch, K1/K2: the route before K4/K5), and the crop
+    objective on the plain version ("plain"), at increments of 1e-3; a case
+    runs under ``_images_by(images)``."""
     import torch
-    from cmax_slam_tpu_torch.ops import device_loop, scatter, warp_local, warp_pano
+    from cmax_slam_tpu_torch.ops import warp_local, warp_pano
 
     fe, be = slam.frontend, slam.backend
     est = next(e for e in fe.estimates[5:] if e.iters > 0)
     beg, end = est.span
     packet = fe._packet(ev.xs[beg:end], ev.ys[beg:end], ev.ts[beg:end],
                         float(np.float32(est.t - fe._t0)))
-    cases = {"packet": (warp_local, warp_local.make_local_objective(
-        packet, fe.cam, fe.cfg.warp.blur_sigma, fe.cfg.contrast_measure),
-        torch.tensor([est.omega], dtype=torch.float32, device="cuda"))}
+    f, vg = warp_local.make_local_objective(packet, fe.cam, fe.cfg.warp.blur_sigma,
+                                            fe.cfg.contrast_measure)
+    cases = {"packet": (f, vg, torch.tensor([est.omega], dtype=torch.float32, device="cuda"),
+                        None)}
     solver = next((s for key, s in be._entry.programs.items() if key[3] is not None), None)
-    if solver is not None:  # the last window loaded into a crop program
+    if solver is not None:
         K = solver.win.knots.shape[0]
         x = torch.full((1, 3 * K), 1e-3, device="cuda")
-        cases["crop"] = (warp_pano, warp_pano.make_crop_objective(
-            solver.win, be.pano, be.order, be.cfg.warp.blur_sigma, be.cfg.contrast_measure,
-            solver.a_crop.shape, solver.origin[0], solver.origin[1], solver.a_crop,
-            solver.mask, solver.out_s1, solver.out_s2), x)
+        sigma, measure = be.cfg.warp.blur_sigma, be.cfg.contrast_measure
+        crop = warp_pano.make_crop_objective(
+            solver.win, be.pano, be.order, sigma, measure, solver.a_crop.shape, None, None,
+            solver.a_crop, solver.mask, solver.out_s1, solver.out_s2, origin=solver.origin,
+            basis=solver.basis)
+        pano = warp_pano.make_pano_objective(solver.win, be.pano, be.order, sigma, measure,
+                                             basis=solver.basis)
+        routes = {"fused": None, "composed": warp_pano.pano_vote_composed,
+                  "plain": warp_pano.pano_vote_plain}
+        for route, images in routes.items():
+            cases[f"crop_{route}"] = (*crop, x, images)
+            if route != "plain":
+                cases[f"pano_{route}"] = (*pano, x, images)
+    return cases
+
+
+def check_captured_objectives(slam, ev) -> dict:
+    """A captured evaluation (value and gradient) of the packet objective
+    (K1 and K2 inside the graph) against the same objective on the plain
+    vote on the card, and of the back-end crop objective through K4/K5
+    against the composed route (K1/K2) and the plain version, at phase 4's
+    shapes. The votes sum with atomics in a run-dependent order: f within
+    rtol 1e-5, g within rtol 2e-3, atol 2e-6 of its scale."""
+    import torch
+    from cmax_slam_tpu_torch.ops import device_loop, scatter, warp_local
+
+    cases = _objective_cases(slam, ev)
+    refs = {}
+    vote = warp_local.vote
+    warp_local.vote = scatter.bilinear_accumulate  # the plain version, on the card
+    try:
+        v, g = cases["packet"][1](cases["packet"][2])
+        refs["packet"] = ("plain vote", torch.cat([v, g[0]]).cpu().numpy())
+    finally:
+        warp_local.vote = vote
     out, ok = {}, True
-    for name, (mod, (_, vg), x) in cases.items():
+    for name in ("packet", "crop_fused"):
+        if name not in cases:
+            continue
+        _, vg, x, _ = cases[name]
         D = x.shape[1]
-        buf = {}
 
         def build(b):
             def seg():
@@ -1855,23 +2145,101 @@ def check_captured_objectives(slam, ev) -> dict:
 
         prog = device_loop.Program(build, 1 + D, "cuda", name=f"objective_{name}")
         got = prog.run().fetch()
-        vote = mod.vote
-        mod.vote = scatter.bilinear_accumulate  # the plain version, on the card
-        try:
-            v, g = vg(x)
-        finally:
-            mod.vote = vote
-        ref = torch.cat([v, g[0]]).cpu().numpy()
-        f_err = abs(got[0] - ref[0]) / abs(ref[0])
-        g_err = np.abs(got[1:] - ref[1:]).max()
-        g_tol = 2e-3 * np.abs(ref[1:]).max() + 2e-6
-        buf = {"f_rel_err": float(f_err), "g_abs_err": float(g_err), "g_tol": float(g_tol),
-               "graph_ms": _time_ms(lambda: prog.run().fetch(), reps=20),
+        against = [refs["packet"]] if name == "packet" else []
+        for route in ([] if name == "packet" else ["composed", "plain"]):
+            _, ref_vg, _, images = cases[f"crop_{route}"]
+            with _images_by(images):
+                v, g = ref_vg(x)
+            against.append((route, torch.cat([v, g[0]]).cpu().numpy()))
+        buf = {"graph_ms": _time_ms(lambda: prog.run().fetch(), reps=20),
                "eager_ms": _time_ms(lambda: vg(x), reps=20)}
-        ok &= f_err < 1e-5 and g_err < g_tol
+        for what, ref in against:
+            f_err = abs(got[0] - ref[0]) / abs(ref[0])
+            g_err = np.abs(got[1:] - ref[1:]).max()
+            g_tol = 2e-3 * np.abs(ref[1:]).max() + 2e-6
+            buf[what] = {"f_rel_err": float(f_err), "g_abs_err": float(g_err),
+                         "g_tol": float(g_tol)}
+            ok &= f_err < 1e-5 and g_err < g_tol
         out[name] = buf
-        _log(f"captured {name} objective vs plain vote: {json.dumps(buf)}")
-    return {"captured objectives match the plain vote": bool(ok)} | {"_": out}
+        _log(f"captured {name} objective vs {', '.join(w for w, _ in against)}: "
+             f"{json.dumps(buf)}")
+    return {"captured objectives match their references": bool(ok)} | {"_": out}
+
+
+def split_objectives(slam, ev, reps: int = 20) -> dict:
+    """One evaluation of each of phase 4's objectives (_objective_cases),
+    value-only and value-and-grad, captured alone into a CUDA graph: the
+    graph's nodes and kernel nodes, its replay time (CUDA events over
+    ``reps`` replays), and the device time of each kernel per evaluation
+    (torch.profiler over ``reps`` replays; empty if the profiler records no
+    kernel inside graphs). For the back-end objectives also the torch ops
+    of one eager evaluation that launch a kernel on a tensor of the
+    window's event or batch count ("event_ops"; K4/K5 are not torch ops):
+    none through K4/K5. Prints one line per objective and mode and the
+    leading kernels; returns {objective: {mode: numbers}}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cmax_slam_tpu_torch.ops import cuda_iwe, device_loop
+
+    cases = _objective_cases(slam, ev)
+    solver = next((s for key, s in slam.backend._entry.programs.items() if key[3] is not None),
+                  None)
+    # The window's event and batch counts, less any the case's image shares
+    # (phase 4's 1 024 batches and the panorama's 1 024 columns).
+    sizes = {} if solver is None else {
+        kind: {solver.win.weights.shape[0], solver.win.batch_times.shape[0]} - set(hw)
+        for kind, hw in (("crop", solver.a_crop.shape), ("pano", tuple(solver.ig_in.shape)))}
+    out = {}
+    for name, (f, vg, x, images) in cases.items():
+        if name.endswith("_plain"):
+            continue
+        out[name] = {}
+        for mode, fn in (("value", f), ("value_and_grad", vg)):
+            event_ops = None
+            if name != "packet":
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                             record_shapes=True) as prof, _images_by(images):
+                    fn(x)
+                    torch.cuda.synchronize()
+                event_ops = sum(1 for e in prof.events()
+                                if e.name.startswith("aten::") and e.self_device_time_total > 0
+                                and any(sizes[name.split("_")[0]] & set(shape)
+                                        for shape in e.input_shapes if shape))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), _images_by(images):
+                fn(x)  # warm-up
+            side.synchronize()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.stream(side), cuda_iwe.recording([]), _images_by(images):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    fn(x)
+                finally:
+                    graph.capture_end()
+            torch.cuda.current_stream().wait_stream(side)
+            nodes, kernels = device_loop.graph_nodes(graph)
+            graph.instantiate()
+            ms = _time_ms(graph.replay, reps)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    graph.replay()
+                torch.cuda.synchronize()
+            per = sorted(((e.key, e.self_device_time_total / reps / 1e3)
+                          for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+            total = sum(t for _, t in per)
+            out[name][mode] = {"nodes": nodes, "kernel_nodes": kernels, "graph_ms": ms,
+                               "kernel_ms_sum": total, "event_ops": event_ops,
+                               "kernels": {k[:80]: t for k, t in per[:12]}}
+            _log(f"split {name} {mode}: {nodes} nodes ({kernels} kernels), replay {ms:.4f} ms, "
+                 f"kernels' device time {total:.4f} ms; torch ops on event- or batch-sized "
+                 f"tensors {event_ops}; kernels: "
+                 + "; ".join(f"{k[:60]} {t * 1e3:.2f} us" for k, t in per))
+            del graph
+    return out
 
 
 def run_derivative_images(slam) -> tuple:
@@ -2051,34 +2419,50 @@ def main() -> int:
     # PyTorch's defaults for matmuls, stated here so no environment changes them.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from cmax_slam_tpu_torch.ops import cuda_iwe, device_loop, nvcc, program_pool
+    from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_pano_vote, device_loop, nvcc, program_pool
 
     card = card_line()
     _log(f"card: {card}  (torch {torch.__version__}, CUDA {torch.version.cuda})")
     t0 = time.perf_counter()
-    nvcc.compile_all([cuda_iwe.build_job(), device_loop.build_job()])  # one nvcc each, at once
+    jobs = [cuda_iwe.build_job(), device_loop.build_job(), cuda_pano_vote.build_job()]
+    nvcc.compile_all(jobs)  # one nvcc each, all at once
     cuda_iwe.build()
     device_loop.build()
-    _log(f"build: {time.perf_counter() - t0:.2f} s ({cuda_iwe.library_path().name}, "
-         f"{device_loop.build_job()[2].name})")
+    cuda_pano_vote.build()
+    _log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(j[2].name for j in jobs)})")
     rng = np.random.default_rng(0)
     kernels = check_kernels(rng)
     jvp = check_jvp(rng, kernels["bwd"]["floor_ms"])
+    pano = check_pano_vote(rng, kernels["bwd"]["floor_ms"])
     pred = check_loop_pred()
     _require("loop predicate", {"graph and host gate agree": pred["ok"],
                                 "launches in flight fetch their own numbers":
                                     pred["in_flight_ok"]})
-    fwd_buckets = {}
-    launches, checks, seq_log, wall, slam, stats = run_system(shapes=fwd_buckets, audit=True)
+    fwd_buckets, pano_buckets = {}, {}
+    launches, checks, seq_log, wall, slam, stats = run_system(shapes=fwd_buckets, audit=True,
+                                                              pano_shapes=pano_buckets)
     graphs = {"system": stats}
     _log("system: K1 launches by shape bucket "
-         + json.dumps(dict(sorted(fwd_buckets.items(), key=lambda kv: -kv[1]["launches"]))))
+         + json.dumps(dict(sorted(fwd_buckets.items(), key=lambda kv: -kv[1]["launches"])))
+         + "; K4/K5 " + json.dumps(pano_buckets))
     checks["K1 launches counted by shape"] = (
         sum(s["launches"] for s in fwd_buckets.values()) == launches["fwd"])
+    # K4/K5 took the crop objective: K1 votes on a crop once per crop window
+    # (its constants), where it voted at every evaluation before.
+    crop_windows = slam.metrics.counters.get("backend.crop_windows", 0)
+    _log(f"system: K1 launches in the crop bucket {fwd_buckets.get('crop', {}).get('launches', 0)}"
+         f" for {crop_windows:.0f} crop windows")
+    checks["K1 votes on a crop once per crop window"] = (
+        fwd_buckets.get("crop", {}).get("launches", 0) <= crop_windows)
     _require("system", checks)
     ev = make_stream(2.0)[0]
     objectives = check_captured_objectives(slam, ev)
     _require("captured objectives", {k: v for k, v in objectives.items() if k != "_"})
+    split = split_objectives(slam, ev)
+    _require("objective split", {
+        "no torch op on event- or batch-sized tensors through K4/K5": all(
+            m["event_ops"] == 0 for name in ("crop_fused", "pano_fused") if name in split
+            for m in split[name].values())})
     _require("host loop", compare_host_loop(slam, ev))
     deriv_launches, checks, deriv = run_derivative_images(slam)
     _require("derivative images", checks)
@@ -2191,6 +2575,36 @@ def main() -> int:
                                    if var in s["modes"]["paths"]["variants"]}}
                 for var in cuda_iwe.BWD_VARIANTS}
         rows.append(row)
+    pano_src = "cmax_slam_tpu_torch/csrc/pano_vote.cu"
+    pano_replaces = {
+        "pano_fwd": "cmax_slam_tpu/ops/warp_pano.py:288 (make_crop_objective) and :193 "
+                    "(make_pano_objective): warp_to_pano :71 fused by XLA around the Pallas "
+                    "vote, cmax_slam_tpu/ops/pallas_iwe.py:276 (_fwd_impl, pallas_call at :289)",
+        "pano_bwd": "the VJP of the same: cmax_slam_tpu/ops/pallas_iwe.py:307 (_vjp_bwd, "
+                    "pallas_call at :350) and XLA's differentiation of warp_to_pano "
+                    "(cmax_slam_tpu/ops/warp_pano.py:71) and of the spline"}
+    crop_split = {m: {route: {k: split.get(f"crop_{route}", {}).get(m, {}).get(k)
+                              for k in ("nodes", "kernel_nodes", "graph_ms")}
+                      for route in ("fused", "composed")}
+                  for m in ("value", "value_and_grad")}  # in K4's row
+    for k, name in (("pano_fwd", "pano_vote_fwd"), ("pano_bwd", "pano_vote_bwd")):
+        v = pano[k]
+        rows.append({
+            "name": name, "route": "cuda", "source": pano_src, "replaces": pano_replaces[k],
+            "launches": launches[k], "launches_by_path": by_path(k),
+            "launches_in_graphs_by_path": by_path(f"graph_{k}"),
+            "launches_by_order_by_path": {o: by_path(f"{k}_o{o}") for o in cuda_pano_vote.ORDERS},
+            "launches_by_shape": {b: t for b, t in pano_buckets.items() if b.startswith(k)},
+            "max_abs_err": v["max_abs_err"], "ms": v["ms"], "device_ms": v["device_ms"],
+            "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+            "library_ms": None, "floor_ms": v["floor_ms"], "shape": v["shape"],
+            "by_shape": {tag: {key: e[key] for key in (
+                "order", "M", "events", "image", "device_ms", "wrapper_ms", "plain_ms",
+                "bound_ms", "max_abs_err", "pixels_past_tol", "g_max_abs_err")}
+                | {"composed_fwd_bwd_ms": e["ms"]["composed_fwd_bwd"],
+                   "fused_fwd_bwd_ms": e["ms"]["fused_fwd_bwd"]}
+                for tag, e in v["by_shape"].items()}}
+            | ({"captured_crop_evaluation": crop_split} if k == "pano_fwd" else {}))
     rows.append({
         "name": "vote_jvp", "route": "cuda", "source": src,
         "replaces": "no Pallas kernel: JAX's forward mode through its XLA scatter vote "

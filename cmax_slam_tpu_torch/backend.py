@@ -964,6 +964,7 @@ class _WindowSolver:
         B = win.batch_times.shape[0]
         H, W = pano.height, pano.width
         sigma, measure = cfg.warp.blur_sigma, cfg.contrast_measure
+        self.order = order
 
         def buf(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -974,6 +975,9 @@ class _WindowSolver:
                               free_mask=buf(K), t0=win.t0, dt_knots=win.dt_knots,
                               ig_prime=self.ig_in, alpha=buf())
         self.fov = buf(n_fov)
+        # The spline basis of the window's batches (spline.segment_basis),
+        # computed per window at load: the objective reads it.
+        self.basis = (buf(B, dtype=torch.int32), buf(B, order))
         self.ig_out, self.upd_out = torch.zeros_like(self.ig_in), torch.zeros_like(self.upd_in)
         self.crop = None
         if crop_hw is not None:
@@ -984,10 +988,12 @@ class _WindowSolver:
             self.out_s1, self.out_s2 = buf(), buf()
             x0f, y0f = self.origin[0], self.origin[1]  # views: read at every run
             f, vg = warp_pano.make_crop_objective(self.win, pano, order, sigma, measure,
-                                                  crop_hw, x0f, y0f, self.a_crop, self.mask,
-                                                  self.out_s1, self.out_s2)
+                                                  crop_hw, None, None, self.a_crop, self.mask,
+                                                  self.out_s1, self.out_s2, origin=self.origin,
+                                                  basis=self.basis)
         else:
-            f, vg = warp_pano.make_pano_objective(self.win, pano, order, sigma, measure)
+            f, vg = warp_pano.make_pano_objective(self.win, pano, order, sigma, measure,
+                                                  basis=self.basis)
         if lam:  # quadratic prior toward the incoming knots (refine sweeps)
             f0, vg0 = f, vg
 
@@ -1019,7 +1025,7 @@ class _WindowSolver:
             win = self.win
             drotv = cg.s.x[0].reshape(K, 3)
             knots_new = spline.apply_masked_increments(win.knots, drotv, win.free_mask)
-            px, py = warp_pano.warp_to_pano(drotv, win, pano, order)
+            px, py = warp_pano.warp_to_pano(drotv, win, pano, order, self.basis)
             if self.crop is None:
                 il_old, _ = bilinear_accumulate_two(px, py, win.weights, ~win.is_old, H, W)
                 bbox = torch.zeros(4, device=dev)
@@ -1057,10 +1063,20 @@ class _WindowSolver:
         self.out = self.program.out
 
     def solve(self, win: PanoWindow, fov_rel, consts, ig, upd) -> device_loop.Result:
-        """Copy the window, its constants and the maps (IG, update_times)
-        into the buffers and launch; returns the launch's handle."""
+        """Load the window (``load``) and launch; returns the launch's
+        handle."""
+        self.load(win, fov_rel, consts, ig, upd)
+        return self.program.run()
+
+    def load(self, win: PanoWindow, fov_rel, consts, ig, upd) -> None:
+        """Copy the window, its spline basis, its constants and the maps
+        (IG, update_times) into the buffers."""
         for name in ("bearings", "batch_times", "weights", "is_old", "knots", "free_mask"):
             getattr(self.win, name).copy_(getattr(win, name))
+        for buf, value in zip(self.basis, spline.segment_basis(
+                self.win.batch_times, self.win.t0, self.win.dt_knots, self.win.knots.shape[0],
+                self.order)):
+            buf.copy_(value)
         self.ig_in.copy_(ig)
         self.upd_in.copy_(upd)
         self.win.alpha.copy_(consts["alpha"])
@@ -1069,4 +1085,3 @@ class _WindowSolver:
             for name in ("crop", "a_crop", "mask", "out_s1", "out_s2"):
                 getattr(self, name).copy_(consts[name])
             self.origin.copy_(consts["crop"][:2].flip(0))  # (x0, y0)
-        return self.program.run()

@@ -98,6 +98,25 @@ int loop_launch(cudaGraphExec_t exec, void* stream) {
 
 int loop_exec_destroy(cudaGraphExec_t exec) { return cudaGraphExecDestroy(exec); }
 
+// The nodes of a graph (not of its child graphs) and how many of them are
+// kernel nodes (chip_smoke's split of a captured objective evaluation).
+int loop_graph_nodes(cudaGraph_t graph, size_t* total, size_t* kernels) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(graph, nullptr, &n);
+  *total = n;
+  *kernels = 0;
+  if (err != cudaSuccess || n == 0) return (int)err;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n];
+  err = cudaGraphGetNodes(graph, nodes, &n);
+  for (size_t i = 0; err == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    if (err == cudaSuccess && type == cudaGraphNodeTypeKernel) ++*kernels;
+  }
+  delete[] nodes;
+  return (int)err;
+}
+
 const char* loop_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 }  // extern "C"

@@ -85,7 +85,10 @@ import torch
 from . import nvcc
 
 LAUNCHES = {"fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0,
-            "jvp": 0, "jvp_G": 0}
+            "jvp": 0, "jvp_G": 0,
+            # K4 and K5 (ops/cuda_pano_vote.py), by spline order
+            "pano_fwd": 0, "pano_fwd_o2": 0, "pano_fwd_o4": 0,
+            "pano_bwd": 0, "pano_bwd_o2": 0, "pano_bwd_o4": 0}
 GRAPH_LAUNCHES = dict.fromkeys(LAUNCHES, 0)  # the part of LAUNCHES run inside CUDA graphs
 SHAPE_LAUNCHES: dict | None = None
 _recorder: list | None = None  # launches captured into the graph being built (one at a

@@ -88,10 +88,22 @@ def build():
             lib.loop_instantiate.argtypes = [p, pp]
             lib.loop_launch.argtypes = [p, p]
             lib.loop_exec_destroy.argtypes = [p]
+            lib.loop_graph_nodes.argtypes = [p, ctypes.POINTER(ctypes.c_size_t),
+                                             ctypes.POINTER(ctypes.c_size_t)]
             lib.loop_error_string.argtypes = [ctypes.c_int]
             lib.loop_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> tuple:
+    """(nodes, kernel nodes) of a graph captured with keep_graph=True."""
+    lib = build()
+    total, kernels = ctypes.c_size_t(), ctypes.c_size_t()
+    _check(lib, lib.loop_graph_nodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                     ctypes.byref(total), ctypes.byref(kernels)),
+           "cudaGraphGetNodes")
+    return total.value, kernels.value
 
 
 def _check(lib, err: int, what: str) -> None:

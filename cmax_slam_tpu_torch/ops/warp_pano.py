@@ -4,10 +4,14 @@ continuous-time SO(3) spline; counterpart of cmax_slam_tpu/ops/warp_pano.py.
 Reference: EventWarper (src/backend/event_pano_warper.cpp:167-336). All
 events of an ``event_batch_size`` batch share the spline pose at the batch
 midpoint (:238-251); rotation and equirectangular projection are
-component-wise tensor expressions; votes go through ops/scatter.vote; the
-gradient with respect to the 3K knot increments comes from one autograd
-pass, so the reference's 3K derivative images are never materialized on the
-solver's path. ``derivative_images`` gives them for inspection
+component-wise tensor expressions; votes go through ops/scatter.vote. The
+solver's objectives (make_pano_objective, make_crop_objective) take the
+whole chain from knot increments to image through ``pano_vote``: on the
+card one kernel forward (K4) and one backward (K5, ops/cuda_pano_vote.py),
+on the CPU ``pano_vote_plain`` with autograd. The gradient with respect to
+the 3K knot increments comes from one backward pass, so the reference's 3K
+derivative images are never materialized on the solver's path.
+``derivative_images`` gives them for inspection
 (saveDerivativeImages): the warp's tangents by forward mode, then one
 tangent vote (K3 on the card) and the blur.
 """
@@ -24,7 +28,8 @@ from ..calib import EquirectCamera
 from . import contrast as contrast_mod
 from .blur import gaussian_blur
 from .contrast import contrast
-from .scatter import bilinear_accumulate_two, tangent_vote, vote
+from . import cuda_pano_vote
+from .scatter import bilinear_accumulate, bilinear_accumulate_two, tangent_vote, vote
 from .warp_local import value_and_grad
 
 
@@ -56,12 +61,14 @@ class PanoWindow(NamedTuple):
     alpha: torch.Tensor
 
 
-def warp_to_pano(drotv: torch.Tensor, win: PanoWindow, pano: EquirectCamera, order: int):
+def warp_to_pano(drotv: torch.Tensor, win: PanoWindow, pano: EquirectCamera, order: int,
+                 basis=None):
     """Warp all events through the (perturbed) trajectory; returns (px, py).
-    ``drotv`` is (..., K, 3); a batch of M increments gives (M, N) each."""
+    ``drotv`` is (..., K, 3); a batch of M increments gives (M, N) each.
+    ``basis``: the window's ``spline.segment_basis``, if computed already."""
     lead = drotv.shape[:-2]
     knots = spline.apply_masked_increments(win.knots, drotv, win.free_mask)
-    R = spline.evaluate_rotmats(knots, win.batch_times, win.t0, win.dt_knots, order)
+    R = spline.evaluate_rotmats(knots, win.batch_times, win.t0, win.dt_knots, order, basis)
     B = win.batch_times.shape[0]
     bx = win.bearings[0].reshape(B, -1)
     by = win.bearings[1].reshape(B, -1)
@@ -133,17 +140,63 @@ def derivative_images(win: PanoWindow, pano: EquirectCamera, order: int,
     return gaussian_blur(timg, blur_sigma).reshape(K, 3, pano.height, pano.width)
 
 
+def _warp_from(drotv, win: PanoWindow, pano: EquirectCamera, order: int, origin, basis):
+    px, py = warp_to_pano(drotv, win, pano, order, basis)
+    if origin is not None:
+        px, py = px - origin[0], py - origin[1]
+    return px, py
+
+
+def pano_vote_plain(drotv, win: PanoWindow, pano: EquirectCamera, order: int, hw: tuple,
+                    origin=None, basis=None) -> torch.Tensor:
+    """The images of the window's events warped by (..., K, 3) increments,
+    on an (H, W) = ``hw`` image whose origin lies at ``origin`` = (x0, y0) of
+    the panorama (a (2,) tensor; None: the panorama itself), in plain torch:
+    ``warp_to_pano``, then the plain vote, with autograd for the gradient.
+    The version K4 and K5 are held against, and the CPU's."""
+    return bilinear_accumulate(*_warp_from(drotv, win, pano, order, origin, basis),
+                               win.weights, *hw)
+
+
+def pano_vote_composed(drotv, win: PanoWindow, pano: EquirectCamera, order: int, hw: tuple,
+                       origin=None, basis=None) -> torch.Tensor:
+    """``pano_vote_plain`` with the vote dispatched by ``scatter.vote`` (K1
+    and K2 on the card): the objectives' route before K4 and K5, kept as
+    chip_smoke's yardstick for them."""
+    return vote(*_warp_from(drotv, win, pano, order, origin, basis), win.weights, *hw)
+
+
+def pano_vote(drotv, win: PanoWindow, pano: EquirectCamera, order: int, hw: tuple,
+              origin=None, basis=None) -> torch.Tensor:
+    """``pano_vote_plain``'s function, dispatched on the tensor's device:
+    CPU -> the plain version, CUDA -> K4 forward and K5 backward
+    (ops/cuda_pano_vote.py). There is no fallback between the two."""
+    if drotv.device.type == "cuda":
+        if basis is None:
+            basis = spline.segment_basis(win.batch_times, win.t0, win.dt_knots,
+                                         win.knots.shape[0], order)
+        return cuda_pano_vote.pano_vote_cuda(drotv, win, basis, pano, order, hw, origin)
+    if drotv.device.type != "cpu":
+        raise RuntimeError(f"no vote implementation for device {drotv.device}")
+    return pano_vote_plain(drotv, win, pano, order, hw, origin, basis)
+
+
 def make_pano_objective(win: PanoWindow, pano: EquirectCamera, order: int,
-                        blur_sigma: float, measure: int):
+                        blur_sigma: float, measure: int, *, basis=None):
     """Negative-contrast objective over flattened knot increments R^{3K}
     (global_contrast_fdf, global_optim_contrast_gsl_analytical.cpp:17-68)
     and its value_and_grad. f takes (3K,) or a (M, 3K) batch (one batched
-    vote for the vector and grid ladders)."""
+    vote for the vector and grid ladders). The window's spline basis is
+    computed here, unless ``basis`` holds it (a window program's buffers,
+    rewritten per window)."""
     K = win.knots.shape[0]
+    if basis is None:
+        basis = spline.segment_basis(win.batch_times, win.t0, win.dt_knots, K, order)
 
     def f(flat_drotv):
         drotv = flat_drotv.reshape(*flat_drotv.shape[:-1], K, 3)
-        _, image = pano_objective_image(drotv, win, pano, order, blur_sigma)
+        il = pano_vote(drotv, win, pano, order, (pano.height, pano.width), None, basis)
+        image = gaussian_blur(il + win.alpha * win.ig_prime, blur_sigma)
         return -contrast(image, measure)
 
     return f, value_and_grad(f)
@@ -186,21 +239,27 @@ def warp_bbox(drotv, win: PanoWindow, pano: EquirectCamera, order: int) -> torch
 def make_crop_objective(win: PanoWindow, pano: EquirectCamera, order: int,
                         blur_sigma: float, measure: int, crop_hw: tuple,
                         x0f, y0f, a_crop: torch.Tensor,
-                        mask: torch.Tensor, out_s1, out_s2):
+                        mask: torch.Tensor, out_s1, out_s2, *, origin=None, basis=None):
     """Crop-decomposed negative-contrast objective over R^{3K}, equal to
     make_pano_objective's value under the crop invariants. x0f, y0f are the
-    crop origin (numbers or 0-dim device tensors); a_crop is the constant
-    alpha * blur(IG') under the crop; out_s1/out_s2 the constant stats of
-    that term outside the valid interior. f takes (3K,) or a (M, 3K)
-    batch."""
+    crop origin (numbers or 0-dim device tensors, read here), unless
+    ``origin``, a (2,) device tensor (x0, y0), is given: it is read at every
+    evaluation (a window program's buffer, rewritten per window); a_crop is
+    the constant alpha * blur(IG') under the crop; out_s1/out_s2 the
+    constant stats of that term outside the valid interior. ``basis`` as
+    make_pano_objective's. f takes (3K,) or a (M, 3K) batch."""
     K = win.knots.shape[0]
-    Hc, Wc = crop_hw
     n_total = pano.height * pano.width
+    dev = win.knots.device
+    if origin is None:
+        origin = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=dev)
+                              for v in (x0f, y0f)])
+    if basis is None:
+        basis = spline.segment_basis(win.batch_times, win.t0, win.dt_knots, K, order)
 
     def f(flat_drotv):
         drotv = flat_drotv.reshape(*flat_drotv.shape[:-1], K, 3)
-        px, py = warp_to_pano(drotv, win, pano, order)
-        il = vote(px - x0f, py - y0f, win.weights, Hc, Wc)
+        il = pano_vote(drotv, win, pano, order, tuple(crop_hw), origin, basis)
         image = gaussian_blur(il, blur_sigma) + a_crop
         s1, s2 = contrast_mod.region_stats(image, mask, measure)
         return -contrast_mod.contrast_from_stats(s1 + out_s1, s2 + out_s2, n_total, measure)

@@ -70,6 +70,17 @@ def _coeffs(u: torch.Tensor, order: int, dtype) -> torch.Tensor:
     return up @ M
 
 
+def segment_basis(t: torch.Tensor, t0, dt, num_knots: int, order: int,
+                  dtype=torch.float32):
+    """Each time's spline segment (int32) and its (order,) blending
+    coefficients, as ``evaluate_rotmats`` computes them from ``t``: they do
+    not depend on the knots, so a window computes them once and its
+    objective reads them (the back-end kernels K4 and K5 take them as
+    operands)."""
+    s, u = _segment_and_u(t, t0, dt, num_knots, order)
+    return s.to(torch.int32), _coeffs(u, order, dtype)
+
+
 def evaluate(knots: torch.Tensor, t: torch.Tensor, t0, dt, order: int) -> torch.Tensor:
     """Evaluate the cumulative SO(3) B-spline at times ``t`` -> (..., 4).
 
@@ -149,15 +160,16 @@ def _soa_exp(v):
     return w, x * sinc_half, y * sinc_half, z * sinc_half
 
 
-def evaluate_rotmats(knots: torch.Tensor, t: torch.Tensor, t0, dt, order: int):
+def evaluate_rotmats(knots: torch.Tensor, t: torch.Tensor, t0, dt, order: int,
+                     basis=None):
     """Spline rotation matrices at times ``t`` (B,) as a 3x3 nest of (..., B)
     component tensors R[i][j]: ``lie.to_matrix(evaluate(...))`` in
     component-wise arithmetic, the form the back-end warp consumes. ``knots``
     is (..., K, 4); leading dimensions (a batch of candidate trajectories)
-    carry through to the components."""
+    carry through to the components. ``basis``: ``segment_basis`` of ``t``,
+    computed beforehand (else here)."""
     num_knots = knots.shape[-2]
-    s, u = _segment_and_u(t, t0, dt, num_knots, order)
-    coeff = _coeffs(u, order, knots.dtype)  # (B, order)
+    s, coeff = basis or segment_basis(t, t0, dt, num_knots, order, knots.dtype)  # (B,), (B, order)
     kq = knots[..., s[:, None] + torch.arange(order, device=knots.device), :]  # (..., B, order, 4)
 
     res = tuple(kq[..., 0, c] for c in range(4))

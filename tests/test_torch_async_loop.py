@@ -182,13 +182,29 @@ def test_protocol_matches_jax(runs):
                                [tt for tt, _ in j.trajectory_log], atol=1e-9)
     k_t, k_j = t.backend.traj.knots, j.backend.traj.knots
     assert k_t.shape == k_j.shape
-    if runs["name"] == "sparse":
+    if runs["name"] == "sparse":  # its knots: test_half_empty_windows_knots_match_jax
         return
     assert _knot_deg(k_t, k_j).max() < KNOT_DEG
     tr_t, tr_j = t.backend.traj, j.backend.traj
     grid = np.linspace(tr_t.t_beg + 1e-6, tr_t.max_time() - 1e-6, 40)
     gap, _ = rotation_rms_deg(grid, tr_j.evaluate(grid), tr_t.evaluate(grid), "first")
     assert gap < KNOT_DEG
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("stream", ["sparse"], indirect=True)
+@pytest.mark.xfail(strict=True, reason=(
+    "known miss (ROADMAP Queue 3): the windows half in the thinned span leave knots "
+    "unconstrained; from JAX's checkpoint before each window the port takes more line "
+    "searches to a lower cost (11 against 6 in window 1) and the knots part by degrees "
+    "(7.6 deg at the thinned span's first knot, KNOT_DEG 0.1)"))
+def test_half_empty_windows_knots_match_jax(runs):
+    """The sparse stream's knots against JAX's, at test_torch_slice.py's knot
+    tolerance: the assertion test_protocol_matches_jax makes on the dense
+    stream."""
+    k_t, k_j = runs["t"].backend.traj.knots, runs["j"].backend.traj.knots
+    assert k_t.shape == k_j.shape
+    assert _knot_deg(k_t, k_j).max() < KNOT_DEG, np.round(_knot_deg(k_t, k_j), 4)
 
 
 def test_pipelined_equals_flushed_after_every_push(runs):

@@ -34,10 +34,11 @@ _PROBE = textwrap.dedent("""
                                                    "cmax_slam_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    from cmax_slam_tpu_torch.ops import cuda_iwe
+    from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_pano_vote
     build_dir = cuda_iwe.BUILD_DIR
     built = sorted(p.name for p in build_dir.glob("*")) if build_dir.exists() else []
-    print(json.dumps({"preloaded": preloaded, "names": names, "lib": bool(cuda_iwe._loaded),
+    print(json.dumps({"preloaded": preloaded, "names": names,
+                      "lib": bool(cuda_iwe._loaded or cuda_pano_vote._loaded),
                       "launches": cuda_iwe.LAUNCHES, "built": built}))
 """)
 
@@ -55,7 +56,7 @@ def test_importing_every_module_needs_no_jax_and_builds_nothing(tmp_path):
     expected = {"cmax_slam_tpu_torch." + m for m in (
         "backend", "calib", "config", "frontend", "lie", "spline", "system",
         "ops.scatter", "ops.cuda_iwe", "ops.blur", "ops.contrast", "ops.warp_local",
-        "ops.optim", "ops.warp_pano", "ops.device_loop", "ops.program_pool", "io.events", "io.native", "io.synthetic", "io.devring",
+        "ops.optim", "ops.warp_pano", "ops.cuda_pano_vote", "ops.device_loop", "ops.program_pool", "io.events", "io.native", "io.synthetic", "io.devring",
         "utils.metrics", "utils.evaluate", "utils.device", "cli", "io.streams", "io.rosbag",
         "utils.image", "parallel", "parallel.sharding", "parallel.batched",
         "parallel.window_shard", "parallel.replay")}
@@ -63,7 +64,8 @@ def test_importing_every_module_needs_no_jax_and_builds_nothing(tmp_path):
     assert not res["preloaded"]
     assert not res["lib"] and res["launches"] == {
         "fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0, "jvp": 0,
-        "jvp_G": 0}
+        "jvp_G": 0, "pano_fwd": 0, "pano_fwd_o2": 0, "pano_fwd_o4": 0, "pano_bwd": 0,
+        "pano_bwd_o2": 0, "pano_bwd_o4": 0}
     assert res["built"] == before
 
 

@@ -399,8 +399,10 @@ def _route_votes_through_vote(monkeypatch, seen):
 @pytest.mark.parametrize("objective", ["local", "local_lanes", "crop"])
 def test_objectives_value_and_grad_ask_k2_for_no_dw(rng, monkeypatch, objective):
     """The front-end local objective (one packet, and lanes x rungs) and the
-    back-end crop objective differentiate the warp, never the weights:
-    their value_and_grad asks K2 for no dw, with the gradient unchanged."""
+    back-end crop objective on its composed route (K1/K2: the main path
+    takes K4/K5, ops/cuda_pano_vote.py) differentiate the warp, never the
+    weights: their value_and_grad asks K2 for no dw, with the gradient
+    unchanged."""
     if objective.startswith("local"):
         _, tp, cam, omega = _packets(rng)
         tcam = warp_local.CameraParams(*cam)
@@ -425,6 +427,8 @@ def test_objectives_value_and_grad_ask_k2_for_no_dw(rng, monkeypatch, objective)
         def make():
             return warp_pano.make_crop_objective(ct[0], pano, order, sigma, measure, (Hc, Wc),
                                                  *ct[1:])[1]
+
+        monkeypatch.setattr(warp_pano, "pano_vote", warp_pano.pano_vote_composed)
 
     v_ref, g_ref = make()(x)
     seen = []
