@@ -42,7 +42,8 @@ Phases, in order; any failure exits non-zero:
    panorama on the atan2 seam and 768 000 events on 2048x4096: the image
    within 1e-5 of its largest pixel (pixels past it counted), the gradient
    within rtol 2e-3, atol 2e-6 of its scale and exactly 0 on the frozen
-   knot; device times in turns beside the bound and the launch floor, the
+   knot, two K5 launches torch.equal; device times (with --parent the
+   parent's K4/K5 too, in turns) beside the bound and the launch floor, the
    wrapper's, the plain version's and the composed route's (K1/K2) times.
    Then the loop predicate: a WHILE node with a nested IF node run as one
    graph against the same program with its gates read on the host (equal
@@ -131,8 +132,12 @@ Phases, in order; any failure exits non-zero:
    (overlap 0.4 s) on the stock preset, stitched RMS < 0.5 deg, its two
    live segments on distinct pool entries.
 
-With ``--parent DIR`` (an unpacked checkout of another commit) it then
-times phase 4 on both trees in turns, each turn a process of its own.
+With ``--parent DIR`` (an unpacked checkout of another commit) phase 3
+also builds the parent's csrc/pano_vote.cu and holds and times its K4/K5
+in turns with this tree's (ParentPanoVote: PR 11's launch plan and C
+interface), phase 4 captures the crop evaluation through them too, and at
+the end it times phase 4 on both trees in turns, each turn a process of its
+own.
 
 Before the last line it prints one JSON object with every kernel's route,
 source, launches on each path (the system runs of phase 4, its derivative
@@ -157,6 +162,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -795,26 +801,133 @@ def pano_case(order: int, span: float, n_events: int, image: tuple, device: str 
     return win, pano, basis, origin, (H, W)
 
 
+class ParentPanoVote:
+    """K4/K5 of another commit's tree (``chip_smoke.py --parent DIR``): its
+    csrc/pano_vote.cu built beside this tree's and driven by PR 11's launch
+    plan and C interface (a block per run of whole batches; K5's scratch a
+    partial per block and a completion counter zeroed by the caller), for
+    phase 3's comparison in turns and the captured crop evaluation through
+    it (``_images_by(PARENT)``). Launches are counted under this tree's
+    keys."""
+
+    FWD_EVENTS, BWD_WARPS, BWD_BLOCKS, MAX_BATCHES = 1024, 8, 264, 64  # PR 11's constants
+
+    def __init__(self, root: str):
+        from cmax_slam_tpu_torch.ops import cuda_pano_vote, nvcc
+
+        self.src = Path(root) / "cmax_slam_tpu_torch" / "csrc" / "pano_vote.cu"
+        self.flags = cuda_pano_vote.nvcc_flags()
+        self.path = nvcc.library_path(self.src, self.flags, "libpano_vote_parent")
+        self.lib = None
+
+    def build_job(self) -> tuple:
+        return self.src, self.flags, self.path
+
+    def build(self):
+        import ctypes
+
+        if self.lib is None:
+            lib = ctypes.CDLL(str(self.path))
+            p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+            common = [p] * 8 + [i64, i32, i64, i32, i32, f32, f32, f32, f32, i32, i32, i32]
+            lib.iwe_pano_vote_fwd.argtypes = [*common, p, p]
+            lib.iwe_pano_vote_bwd.argtypes = [*common, p, p, p, p, p]
+            lib.iwe_pano_vote_fwd.restype = lib.iwe_pano_vote_bwd.restype = i32
+            self.lib = lib
+        return self.lib
+
+    def _args(self, ops, height, width, bpb):
+        from cmax_slam_tpu_torch.ops import cuda_pano_vote
+
+        M, K, B, ebs = cuda_pano_vote.check_operands(ops)
+        return cuda_pano_vote._args(ops, M, K, B, ebs, height, width, bpb)
+
+    def fwd_batches(self, ebs: int) -> int:
+        return max(1, min(self.MAX_BATCHES, self.FWD_EVENTS // ebs))
+
+    def bwd_batches(self, B: int) -> int:
+        return min(self.MAX_BATCHES,
+                   self.BWD_WARPS * max(1, -(-B // (self.BWD_WARPS * self.BWD_BLOCKS))))
+
+    def _call(self, fn, *args) -> None:
+        import torch
+
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent pano_vote launch failed: error {err}")
+
+    def launch_fwd(self, ops, out, height: int, width: int) -> None:
+        ebs = ops.weights.shape[0] // ops.seg.shape[0]
+        self._call(self.build().iwe_pano_vote_fwd,
+                   *self._args(ops, height, width, self.fwd_batches(ebs)), out.data_ptr())
+
+    def scratch(self, ops) -> tuple:
+        import torch
+
+        M, K, _ = ops.delta.shape
+        B = ops.seg.shape[0]
+        return (torch.empty((M, -(-B // self.bwd_batches(B)), 3 * K), device=ops.delta.device),
+                torch.zeros(1, dtype=torch.int32, device=ops.delta.device))
+
+    def launch_bwd(self, ops, g, part, counter, out) -> None:
+        self._call(self.build().iwe_pano_vote_bwd,
+                   *self._args(ops, g.shape[1], g.shape[2], self.bwd_batches(ops.seg.shape[0])),
+                   g.data_ptr(), part.data_ptr(), counter.data_ptr(), out.data_ptr())
+
+    def pano_vote_fwd(self, ops, height: int, width: int):
+        """cuda_pano_vote.pano_vote_fwd through these kernels."""
+        import torch
+        from cmax_slam_tpu_torch.ops import cuda_iwe
+
+        M = ops.delta.shape[0]
+        out = torch.zeros((M, height, width), device=ops.delta.device)
+        self.launch_fwd(ops, out, height, width)
+        cuda_iwe._launched("pano_fwd", f"o{ops.order}", (M, ops.weights.shape[0], height, width))
+        return out
+
+    def pano_vote_bwd(self, ops, g):
+        """cuda_pano_vote.pano_vote_bwd through these kernels."""
+        import torch
+        from cmax_slam_tpu_torch.ops import cuda_iwe
+
+        part, counter = self.scratch(ops)
+        out = torch.empty_like(ops.delta)
+        self.launch_bwd(ops, g, part, counter, out)
+        cuda_iwe._launched("pano_bwd", f"o{ops.order}",
+                           (g.shape[0], ops.weights.shape[0], g.shape[1], g.shape[2]))
+        return out
+
+
+PARENT: ParentPanoVote | None = None  # set by --parent DIR
+
+
 def check_pano_vote(rng, floor_ms: float) -> dict:
     """Phase 3's K4/K5 part: the back-end objective's event chain through
     the kernels against its plain version (warp_pano.pano_vote_plain, with
-    autograd for the gradient) on the card at PANO_SHAPES: the image within
-    1e-5 of its largest pixel (K4 rounds its coordinates as the plain
-    version does; the atomics sum in a run-dependent order), the pixels
-    past that bound counted; dL/ddelta within rtol 2e-3, atol 2e-6 of its
-    scale, exactly 0 on the frozen knot. Device times in turns (K4 with the
-    zero fill of its images, K5 with the fill of its counter, K4 alone, the
-    fill alone) beside the bound and the launch floor; the wrapper's, the
-    plain version's and the composed route's (warp_to_pano in torch, K1/K2)
-    times. No one PyTorch call computes the function (library_ms null).
-    Returns per kernel its numbers per shape and the max error."""
+    autograd for the gradient) on the card at PANO_SHAPES, through the
+    route (warp_pano.pano_vote) and through the raw launches, of this tree
+    and, with --parent, of the parent's (PARENT): the image within 1e-5 of
+    its largest pixel (K4 rounds its coordinates as the plain version does;
+    the atomics sum in a run-dependent order), the pixels past that bound
+    counted; dL/ddelta within rtol 2e-3, atol 2e-6 of its scale, exactly 0
+    on the frozen knot, and two K5 launches on the same inputs torch.equal.
+    Device times in turns (parent, this, this, parent; K4 with the zero
+    fill of its images and alone, K5 with the fill of the parent's
+    completion counter, this tree's K5 has none; the fills alone) beside
+    the bound and the launch floor; the wrapper's, the plain version's and
+    the composed route's (warp_to_pano in torch, K1/K2) times. No one
+    PyTorch call computes the function (library_ms null). Returns per
+    kernel its numbers per shape (this tree's at the top level of each
+    shape, each tree's under "designs") and the max error."""
     import torch
-    from cmax_slam_tpu_torch.ops import cuda_pano_vote, warp_pano
+    from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_pano_vote, warp_pano
 
+    trees = ["this"] + (["parent"] if PARENT is not None else [])
     out = {k: {"max_abs_err": 0.0, "by_shape": {}} for k in ("pano_fwd", "pano_bwd")}
     for tag, order, M, span, n_events, image in PANO_SHAPES:
         win, pano, basis, origin, hw = pano_case(order, span, n_events, image)
         K, B, N = win.knots.shape[0], win.batch_times.shape[0], win.weights.shape[0]
+        ebs = N // B
         live = int((win.weights != 0).sum())
         delta = torch.tensor(rng.normal(size=(M, K, 3)) * 2e-3, dtype=torch.float32,
                              device="cuda")
@@ -822,45 +935,78 @@ def check_pano_vote(rng, floor_ms: float) -> dict:
             delta[0] = 0.0  # the zero increment: exp's small-angle branch at every knot
         args = (win, pano, order, hw, origin, basis)
         ref = warp_pano.pano_vote_plain(delta, *args)
-        got = warp_pano.pano_vote(delta, *args)
-        torch.cuda.synchronize()
         tol = 1e-5 * max(1.0, float(ref.abs().max()))
-        diff = (got - ref).abs()
-        err, parted = float(diff.max()), int((diff > tol).sum())
         g = torch.tensor(rng.normal(size=(M, *hw)), dtype=torch.float32, device="cuda")
-        routes = {"fused": warp_pano.pano_vote, "composed": warp_pano.pano_vote_composed,
-                  "plain": warp_pano.pano_vote_plain}
-        grads = {}
-        for name in ("plain", "fused"):
-            d = delta.clone().requires_grad_(True)
-            img = routes[name](d, *args)
-            grads[name] = torch.autograd.grad(img, d, g)[0]
-        scale = float(grads["plain"].abs().max())
-        g_err = float((grads["fused"] - grads["plain"]).abs().max())
+        d = delta.clone().requires_grad_(True)
+        g_ref = torch.autograd.grad(warp_pano.pano_vote_plain(d, *args), d, g)[0]
+        scale = float(g_ref.abs().max())
         g_tol = 2e-3 * scale + 2e-6
         frozen = win.free_mask == 0
-        frozen_zero = not bool(grads["fused"][:, frozen].any())
-        ok = (got.shape == ref.shape and bool(torch.isfinite(got).all()) and err <= tol
-              and bool(torch.isfinite(grads["fused"]).all()) and g_err <= g_tol and frozen_zero)
 
+        def held(img, dd):
+            diff = (img - ref).abs()
+            err, parted = float(diff.max()), int((diff > tol).sum())
+            g_err = float((dd - g_ref).abs().max())
+            frozen_zero = not bool(dd[:, frozen].any())
+            ok = (img.shape == ref.shape and bool(torch.isfinite(img).all()) and err <= tol
+                  and bool(torch.isfinite(dd).all()) and g_err <= g_tol and frozen_zero)
+            return {"max_abs_err": err, "pixels_past_tol": parted, "g_max_abs_err": g_err,
+                    "frozen_knot_zero": frozen_zero, "ok": ok}
+
+        # The route: warp_pano.pano_vote and autograd.
+        d = delta.clone().requires_grad_(True)
+        got = warp_pano.pano_vote(d, *args)
+        route = held(got.detach(), torch.autograd.grad(got, d, g)[0])
         ops = cuda_pano_vote.prepare(delta, win, basis, pano, order, origin)
-        img = torch.empty((M, *hw), device="cuda")
-        part, counter = cuda_pano_vote.bwd_scratch(ops)
-        dd = torch.empty_like(ops.delta)
+        sms = cuda_iwe.device_attrs(delta.device)[0]
+        plan = {"this": {"fwd": cuda_pano_vote.fwd_events(ebs, M * N, sms),
+                         "bwd": cuda_pano_vote.bwd_events(ebs)}}
+        if PARENT is not None:
+            plan["parent"] = {"fwd": PARENT.fwd_batches(ebs), "bwd": PARENT.bwd_batches(B)}
+        per, timed = {}, {}
+        for tree in trees:
+            img = torch.zeros((M, *hw), device="cuda")
+            dd = [torch.empty_like(ops.delta) for _ in range(2)]
+            if tree == "this":
+                part, counter = cuda_pano_vote.bwd_scratch(ops), None
 
-        def k4(fill=True):
-            if fill:
-                img.zero_()
-            cuda_pano_vote.launch_fwd(ops, img, *hw)
+                def fwd(img=img):
+                    cuda_pano_vote.launch_fwd(ops, img, *hw)
 
-        def k5():
-            counter.zero_()
-            cuda_pano_vote.launch_bwd(ops, g, part, counter, dd)
+                def bwd(x, part=part):
+                    cuda_pano_vote.launch_bwd(ops, g, part, x)
+            else:
+                part, counter = PARENT.scratch(ops)
 
-        timed = {"K4": k4, "K5": k5, "K4_alone": lambda: k4(False), "fill": img.zero_}
-        dev_t = {v: [] for v in timed}
-        for v in ("K4", "K5", "K4_alone", "fill", "fill", "K4_alone", "K5", "K4"):
-            dev_t[v].append(device_ms(timed[v])[0])
+                def fwd(img=img):
+                    PARENT.launch_fwd(ops, img, *hw)
+
+                def bwd(x, part=part, counter=counter):
+                    counter.zero_()
+                    PARENT.launch_bwd(ops, g, part, counter, x)
+            fwd()
+            for x in dd:  # twice on the same inputs: deterministic
+                bwd(x)
+            torch.cuda.synchronize()
+            per[tree] = held(img, dd[0]) | {"k5_repeat_equal": bool(torch.equal(*dd))}
+
+            def k4(fill=True, img=img, fwd=fwd):
+                if fill:
+                    img.zero_()
+                fwd()
+
+            timed[tree] = {"K4": k4, "K4_alone": lambda k4=k4: k4(False),
+                           "K5": lambda bwd=bwd, x=dd[0]: bwd(x)}
+            if counter is not None:
+                timed["fills"] = {"counter_fill": counter.zero_}
+        timed.setdefault("fills", {})["fill"] = img.zero_
+        dev_t = {tree: {v: [] for v in fns} for tree, fns in timed.items()}
+        turns = trees[::-1] + trees  # parent, this, this, parent
+        for v in ("K4", "K5", "K4_alone"):
+            for tree in turns:
+                dev_t[tree][v].append(device_ms(timed[tree][v])[0])
+        for v, fn in timed["fills"].items():
+            dev_t["fills"][v] += [device_ms(fn)[0] for _ in range(2)]
         d = delta.clone().requires_grad_(True)
         plain_img = warp_pano.pano_vote_plain(d, *args)
         ms = {
@@ -871,40 +1017,70 @@ def check_pano_vote(rng, floor_ms: float) -> dict:
                                                               retain_graph=True)),
             "composed_fwd": _time_ms(lambda: warp_pano.pano_vote_composed(delta, *args)),
         }
+        routes = {"fused": warp_pano.pano_vote, "composed": warp_pano.pano_vote_composed,
+                  "plain": warp_pano.pano_vote_plain}
         for name, images in routes.items():
             def fwd_bwd(images=images):
                 dl = delta.clone().requires_grad_(True)
                 torch.autograd.grad(images(dl, *args), dl, g)
             ms[f"{name}_fwd_bwd"] = _time_ms(fwd_bwd)
         del plain_img, d
+        ok = route["ok"] and all(v["ok"] and v["k5_repeat_equal"] for v in per.values())
+        fills = {v: float(np.mean(t)) for v, t in dev_t["fills"].items()}
         entry = {"order": order, "M": M, "events": N, "live_events": live, "batches": B,
-                 "knots": K, "image": list(image), "max_abs_err": err, "tol": tol,
-                 "pixels_past_tol": parted, "g_max_abs_err": g_err, "g_tol": g_tol,
-                 "g_scale": scale, "frozen_knot_zero": frozen_zero, "floor_ms": floor_ms,
-                 "fill_ms": dev_t["fill"], "k4_alone_ms": dev_t["K4_alone"], "ms": ms}
-        for k, dev in (("pano_fwd", dev_t["K4"]), ("pano_bwd", dev_t["K5"])):
+                 "knots": K, "image": list(image), "tol": tol, "g_tol": g_tol, "g_scale": scale,
+                 "floor_ms": floor_ms, "fill_ms": fills["fill"],
+                 "counter_fill_ms": fills.get("counter_fill"), "ms": ms}
+        for k, key in (("pano_fwd", "K4"), ("pano_bwd", "K5")):
             bd = pano_bound(k, M, N, live, B, K, order, *hw)
-            e = entry | bd | {"device_ms": float(np.mean(dev)), "device_ms_turns": dev,
-                              "wrapper_ms": ms[k],
-                              "plain_ms": ms["plain_fwd" if k == "pano_fwd" else "plain_bwd"]}
+            by_tree = {
+                tree: {"device_ms": float(np.mean(dev_t[tree][key])),
+                       "device_ms_turns": dev_t[tree][key],
+                       "share": bd["bound_ms"] / float(np.mean(dev_t[tree][key])),
+                       "per_block": plan[tree]["fwd" if k == "pano_fwd" else "bwd"]}
+                | ({"alone_ms": float(np.mean(dev_t[tree]["K4_alone"])),
+                    "alone_ms_turns": dev_t[tree]["K4_alone"]} if k == "pano_fwd" else {})
+                | {x: per[tree][x] for x in ("max_abs_err", "pixels_past_tol", "g_max_abs_err",
+                                             "frozen_knot_zero", "k5_repeat_equal")}
+                for tree in trees}
+            e = entry | bd | by_tree["this"] | {
+                "route_max_abs_err": route["max_abs_err"],
+                "route_pixels_past_tol": route["pixels_past_tol"],
+                "route_g_max_abs_err": route["g_max_abs_err"], "wrapper_ms": ms[k],
+                "plain_ms": ms["plain_fwd" if k == "pano_fwd" else "plain_bwd"],
+                "designs": by_tree}
             out[k]["by_shape"][tag] = e
-            out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err if k == "pano_fwd" else g_err)
+            out[k]["max_abs_err"] = max(
+                out[k]["max_abs_err"],
+                *((v["max_abs_err"] if k == "pano_fwd" else v["g_max_abs_err"])
+                  for v in (route, *per.values())))
+
+        def turns_of(tree, v):
+            return "/".join(f"{a * 1e3:.2f}" for a in dev_t[tree][v])
+
+        bf, bb = (out[k]["by_shape"][tag]["bound_ms"] for k in ("pano_fwd", "pano_bwd"))
         _log(f"pano_vote {tag:8s} order {order} M={M} N={N} ({live} live) B={B} K={K} "
-             f"{image[0]} {hw[0]}x{hw[1]}: K4 max_abs_err {err:.3e} (tol {tol:.3e}, "
-             f"{parted} pixels past it); K5 max_abs_err {g_err:.3e} (tol {g_tol:.3e}, scale "
-             f"{scale:.3e}), frozen knot exactly 0 {frozen_zero}; device ms in turns K4 with "
-             f"its fill {'/'.join(f'{a:.4f}' for a in dev_t['K4'])}, K5 with its counter fill "
-             f"{'/'.join(f'{a:.4f}' for a in dev_t['K5'])}, K4 alone "
-             f"{'/'.join(f'{a:.4f}' for a in dev_t['K4_alone'])}, fill "
-             f"{'/'.join(f'{a:.4f}' for a in dev_t['fill'])}; bound K4 "
-             f"{out['pano_fwd']['by_shape'][tag]['bound_ms'] * 1e3:.2f} us, K5 "
-             f"{out['pano_bwd']['by_shape'][tag]['bound_ms'] * 1e3:.2f} us "
-             f"({out['pano_fwd']['by_shape'][tag]['bound_by']}); floor "
-             f"{floor_ms * 1e3:.2f} us; ms {json.dumps(ms)}")
+             f"{image[0]} {hw[0]}x{hw[1]}: route K4 max_abs_err {route['max_abs_err']:.3e} "
+             f"(tol {tol:.3e}, {route['pixels_past_tol']} pixels past it), K5 "
+             f"{route['g_max_abs_err']:.3e} (tol {g_tol:.3e}, scale {scale:.3e}); bound K4 "
+             f"{bf * 1e3:.2f} us, K5 {bb * 1e3:.2f} us "
+             f"({out['pano_fwd']['by_shape'][tag]['bound_by']}); floor {floor_ms * 1e3:.2f} us;"
+             f" fills " + ", ".join(f"{v} {t * 1e3:.2f} us" for v, t in fills.items()))
+        for tree in trees:
+            v = per[tree]
+            _log(f"pano_vote {tag:8s} {tree} (K4 {plan[tree]['fwd']}, K5 {plan[tree]['bwd']} "
+                 f"{'events' if tree == 'this' else 'batches'} a block): K4 err "
+                 f"{v['max_abs_err']:.3e} ({v['pixels_past_tol']} past), K5 err "
+                 f"{v['g_max_abs_err']:.3e}, frozen 0 {v['frozen_knot_zero']}, K5 twice equal "
+                 f"{v['k5_repeat_equal']}; device us in turns K4 with fill "
+                 f"{turns_of(tree, 'K4')} ({bf / np.mean(dev_t[tree]['K4']):.1%} of bound), "
+                 f"alone {turns_of(tree, 'K4_alone')}; K5"
+                 f"{' with counter fill' if tree == 'parent' else ''} {turns_of(tree, 'K5')} "
+                 f"({bb / np.mean(dev_t[tree]['K5']):.1%})")
+        _log(f"pano_vote {tag:8s} ms {json.dumps(ms)}")
         if not ok:
-            raise AssertionError(f"pano_vote {tag}: K4 err {err} (tol {tol}, {parted} pixels), "
-                                 f"K5 err {g_err} (tol {g_tol}), frozen knot zero {frozen_zero}")
-        del img, got, ref, grads, part, counter, dd, ops
+            raise AssertionError(f"pano_vote {tag}: route {route}, trees {per}")
+        del got, ref, ops, timed, img, part, counter, dd
     for k, v in out.items():
         rep = v["by_shape"][PANO_SHAPES[0][0]]
         v.update(shape=PANO_SHAPES[0][0], ms=rep["wrapper_ms"], device_ms=rep["device_ms"],
@@ -2058,16 +2234,21 @@ def check_loop_pred() -> dict:
 @contextlib.contextmanager
 def _images_by(images):
     """While the block runs, the back-end objectives take their images from
-    ``images`` (warp_pano.pano_vote_composed or pano_vote_plain) in place of
-    warp_pano.pano_vote (K4/K5); None changes nothing."""
-    from cmax_slam_tpu_torch.ops import warp_pano
+    ``images``: warp_pano.pano_vote_composed or pano_vote_plain in place of
+    warp_pano.pano_vote (K4/K5), or, given a ParentPanoVote, K4/K5 through
+    the parent's kernels; None changes nothing."""
+    from cmax_slam_tpu_torch.ops import cuda_pano_vote, warp_pano
 
-    saved = warp_pano.pano_vote
-    warp_pano.pano_vote = images or saved
+    saved = warp_pano.pano_vote, cuda_pano_vote.pano_vote_fwd, cuda_pano_vote.pano_vote_bwd
+    if isinstance(images, ParentPanoVote):
+        cuda_pano_vote.pano_vote_fwd = images.pano_vote_fwd
+        cuda_pano_vote.pano_vote_bwd = images.pano_vote_bwd
+    elif images is not None:
+        warp_pano.pano_vote = images
     try:
         yield
     finally:
-        warp_pano.pano_vote = saved
+        warp_pano.pano_vote, cuda_pano_vote.pano_vote_fwd, cuda_pano_vote.pano_vote_bwd = saved
 
 
 def _objective_cases(slam, ev) -> dict:
@@ -2076,9 +2257,10 @@ def _objective_cases(slam, ev) -> dict:
     loaded last into a crop program (none if phase 4 ran no crop window) the
     crop objective and the full-panorama objective, each through K4/K5
     ("fused", the main path: images None) and the composed route
-    (warp_to_pano in torch, K1/K2: the route before K4/K5), and the crop
-    objective on the plain version ("plain"), at increments of 1e-3; a case
-    runs under ``_images_by(images)``."""
+    (warp_to_pano in torch, K1/K2: the route before K4/K5), the crop
+    objective through the parent's K4/K5 with --parent ("fused_parent") and
+    on the plain version ("plain"), at increments of 1e-3; a case runs
+    under ``_images_by(images)``."""
     import torch
     from cmax_slam_tpu_torch.ops import warp_local, warp_pano
 
@@ -2108,6 +2290,8 @@ def _objective_cases(slam, ev) -> dict:
             cases[f"crop_{route}"] = (*crop, x, images)
             if route != "plain":
                 cases[f"pano_{route}"] = (*pano, x, images)
+        if PARENT is not None:
+            cases["crop_fused_parent"] = (*crop, x, PARENT)
     return cases
 
 
@@ -2116,7 +2300,8 @@ def check_captured_objectives(slam, ev) -> dict:
     (K1 and K2 inside the graph) against the same objective on the plain
     vote on the card, and of the back-end crop objective through K4/K5
     against the composed route (K1/K2) and the plain version, at phase 4's
-    shapes. The votes sum with atomics in a run-dependent order: f within
+    shapes, and with --parent the same crop evaluation through the parent's
+    K4/K5. The votes sum with atomics in a run-dependent order: f within
     rtol 1e-5, g within rtol 2e-3, atol 2e-6 of its scale."""
     import torch
     from cmax_slam_tpu_torch.ops import device_loop, scatter, warp_local
@@ -2131,10 +2316,10 @@ def check_captured_objectives(slam, ev) -> dict:
     finally:
         warp_local.vote = vote
     out, ok = {}, True
-    for name in ("packet", "crop_fused"):
+    for name in ("packet", "crop_fused", "crop_fused_parent"):
         if name not in cases:
             continue
-        _, vg, x, _ = cases[name]
+        _, vg, x, images = cases[name]
         D = x.shape[1]
 
         def build(b):
@@ -2144,15 +2329,17 @@ def check_captured_objectives(slam, ev) -> dict:
             b.seg(seg)
 
         prog = device_loop.Program(build, 1 + D, "cuda", name=f"objective_{name}")
-        got = prog.run().fetch()
+        with _images_by(images):  # the capture at the first run takes the design
+            got = prog.run().fetch()
         against = [refs["packet"]] if name == "packet" else []
         for route in ([] if name == "packet" else ["composed", "plain"]):
-            _, ref_vg, _, images = cases[f"crop_{route}"]
-            with _images_by(images):
+            _, ref_vg, _, ref_images = cases[f"crop_{route}"]
+            with _images_by(ref_images):
                 v, g = ref_vg(x)
             against.append((route, torch.cat([v, g[0]]).cpu().numpy()))
-        buf = {"graph_ms": _time_ms(lambda: prog.run().fetch(), reps=20),
-               "eager_ms": _time_ms(lambda: vg(x), reps=20)}
+        with _images_by(images):
+            buf = {"graph_ms": _time_ms(lambda: prog.run().fetch(), reps=20),
+                   "eager_ms": _time_ms(lambda: vg(x), reps=20)}
         for what, ref in against:
             f_err = abs(got[0] - ref[0]) / abs(ref[0])
             g_err = np.abs(got[1:] - ref[1:]).max()
@@ -2166,7 +2353,7 @@ def check_captured_objectives(slam, ev) -> dict:
     return {"captured objectives match their references": bool(ok)} | {"_": out}
 
 
-def split_objectives(slam, ev, reps: int = 20) -> dict:
+def split_objectives(slam, ev, reps: int = 20, only=None) -> dict:
     """One evaluation of each of phase 4's objectives (_objective_cases),
     value-only and value-and-grad, captured alone into a CUDA graph: the
     graph's nodes and kernel nodes, its replay time (CUDA events over
@@ -2175,8 +2362,9 @@ def split_objectives(slam, ev, reps: int = 20) -> dict:
     kernel inside graphs). For the back-end objectives also the torch ops
     of one eager evaluation that launch a kernel on a tensor of the
     window's event or batch count ("event_ops"; K4/K5 are not torch ops):
-    none through K4/K5. Prints one line per objective and mode and the
-    leading kernels; returns {objective: {mode: numbers}}."""
+    none through K4/K5. ``only``: the names of the cases to split (None:
+    all). Prints one line per objective and mode and the leading kernels;
+    returns {objective: {mode: numbers}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from cmax_slam_tpu_torch.ops import cuda_iwe, device_loop
@@ -2191,7 +2379,7 @@ def split_objectives(slam, ev, reps: int = 20) -> dict:
         for kind, hw in (("crop", solver.a_crop.shape), ("pano", tuple(solver.ig_in.shape)))}
     out = {}
     for name, (f, vg, x, images) in cases.items():
-        if name.endswith("_plain"):
+        if name.endswith("_plain") or (only is not None and name not in only):
             continue
         out[name] = {}
         for mode, fn in (("value", f), ("value_and_grad", vg)):
@@ -2423,8 +2611,14 @@ def main() -> int:
 
     card = card_line()
     _log(f"card: {card}  (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    global PARENT
+    parent = (os.path.abspath(sys.argv[sys.argv.index("--parent") + 1])
+              if "--parent" in sys.argv else None)
     t0 = time.perf_counter()
     jobs = [cuda_iwe.build_job(), device_loop.build_job(), cuda_pano_vote.build_job()]
+    if parent is not None:  # the parent's K4/K5, for phase 3 in turns
+        PARENT = ParentPanoVote(parent)
+        jobs.append(PARENT.build_job())
     nvcc.compile_all(jobs)  # one nvcc each, all at once
     cuda_iwe.build()
     device_loop.build()
@@ -2461,7 +2655,7 @@ def main() -> int:
     split = split_objectives(slam, ev)
     _require("objective split", {
         "no torch op on event- or batch-sized tensors through K4/K5": all(
-            m["event_ops"] == 0 for name in ("crop_fused", "pano_fused") if name in split
+            m["event_ops"] == 0 for name in split if name.startswith(("crop_fused", "pano_fused"))
             for m in split[name].values())})
     _require("host loop", compare_host_loop(slam, ev))
     deriv_launches, checks, deriv = run_derivative_images(slam)
@@ -2502,14 +2696,16 @@ def main() -> int:
     ring_launches = phase("ring_wrap", run_ring_wrap)[0]
     cubic = phase("cubic", run_system, overrides=CUBIC, label="cubic", audit=True)
     cubic_launches, graphs["cubic"] = cubic[0], cubic[5]
+    _log("cubic: the crop objective's evaluation split")
+    cubic_split = split_objectives(cubic[4], ev, only=("crop_fused", "crop_composed"))
     del cubic  # its system: the later phases lease its entries
     resume_launches = phase("resume", run_resume)[0]
     cli_launches = phase("cli", run_cli)[0]
     batched_launches = phase("batched", run_batched, seq_log=seq_log)[0]
     shard_launches = phase("window_shard", run_window_shard)[0]
     replay_launches = phase("replay", run_replay)[0]
-    if "--parent" in sys.argv:  # phase 4's wall against another commit, in turns
-        walls_in_turns(os.path.abspath(sys.argv[sys.argv.index("--parent") + 1]), card)
+    if parent is not None:  # phase 4's wall against another commit, in turns
+        walls_in_turns(parent, card)
 
     _log("device programs per path: " + json.dumps(graphs))
     _log("captures per later phase: " + json.dumps(captures))
@@ -2585,8 +2781,16 @@ def main() -> int:
                     "(cmax_slam_tpu/ops/warp_pano.py:71) and of the spline"}
     crop_split = {m: {route: {k: split.get(f"crop_{route}", {}).get(m, {}).get(k)
                               for k in ("nodes", "kernel_nodes", "graph_ms")}
-                      for route in ("fused", "composed")}
+                      for route in ("fused", "composed", "fused_parent")}
                   for m in ("value", "value_and_grad")}  # in K4's row
+    crop_split["cubic"] = {m: {route: {k: cubic_split.get(f"crop_{route}", {}).get(m, {}).get(k)
+                                       for k in ("nodes", "kernel_nodes", "graph_ms",
+                                                 "kernel_ms_sum")}
+                               for route in ("fused", "composed")}
+                           for m in ("value", "value_and_grad")}
+    crop_split["f_rel_err_vs_composed"] = {
+        name: buf["composed"]["f_rel_err"] for name, buf in objectives["_"].items()
+        if name.startswith("crop_fused")}
     for k, name in (("pano_fwd", "pano_vote_fwd"), ("pano_bwd", "pano_vote_bwd")):
         v = pano[k]
         rows.append({
@@ -2600,9 +2804,12 @@ def main() -> int:
             "library_ms": None, "floor_ms": v["floor_ms"], "shape": v["shape"],
             "by_shape": {tag: {key: e[key] for key in (
                 "order", "M", "events", "image", "device_ms", "wrapper_ms", "plain_ms",
-                "bound_ms", "max_abs_err", "pixels_past_tol", "g_max_abs_err")}
+                "bound_ms", "max_abs_err", "pixels_past_tol", "g_max_abs_err", "per_block")}
                 | {"composed_fwd_bwd_ms": e["ms"]["composed_fwd_bwd"],
-                   "fused_fwd_bwd_ms": e["ms"]["fused_fwd_bwd"]}
+                   "fused_fwd_bwd_ms": e["ms"]["fused_fwd_bwd"],
+                   "designs": {d: {x: r[x] for x in ("device_ms", "alone_ms", "share", "per_block")
+                                   if x in r}
+                               for d, r in e["designs"].items()}}
                 for tag, e in v["by_shape"].items()}}
             | ({"captured_crop_evaluation": crop_split} if k == "pano_fwd" else {}))
     rows.append({

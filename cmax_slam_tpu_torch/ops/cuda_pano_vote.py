@@ -15,13 +15,18 @@ the design notes, is csrc/pano_vote.cu; the plain version is
 warp_pano.pano_vote_plain, and ops/warp_pano.pano_vote routes every CUDA
 tensor here.
 
+A block of either kernel takes a run of consecutive events, a thread each
+(``fwd_events``, ``bwd_events``), across batch boundaries, and touches at
+most MAX_BATCHES batches. K5 is two launches: the blocks' partials, then
+their sum in a fixed order (deterministic).
+
 The per-window constants, each batch's spline segment (int32) and blending
 coefficients (spline.segment_basis), come in as operands, and so does the
 crop origin, a (2,) device tensor (x0, y0) read by the kernels at every
 launch: a captured window program rewrites it per window, so it is never
 read on the host. The wrapper allocates through torch (the images, K5's
-per-block partials and its zeroed completion counter) and reads nothing on
-the host, so it captures into device programs (ops/device_loop.py).
+per-block partials) and reads nothing on the host, so it captures into
+device programs (ops/device_loop.py).
 
 The library is built at first use with nvcc into ``_build/`` (ops/nvcc.py),
 keyed by a hash of the source and flags, with -fmad=false: the forward
@@ -47,11 +52,11 @@ from . import cuda_iwe, nvcc
 
 SOURCE = nvcc.CSRC / "pano_vote.cu"
 ORDERS = (2, 4)
-MAX_KNOTS = 128          # kMaxKnots in csrc/pano_vote.cu
-MAX_BATCHES = 64         # kMaxBatches: batches per block
-FWD_EVENTS = 1024        # K4: events per block, about (kThreadsFwd = 256) x 4
-BWD_WARPS = 8            # kWarpsBwd: K5's batches in flight per block
-BWD_BLOCKS = 264         # K5: blocks per image beyond which a block takes more batches
+MAX_KNOTS = 128            # kMaxKnots in csrc/pano_vote.cu
+MAX_BATCHES = 16           # kMaxBatches: batches a block touches
+FWD_EVENTS = (512, 256)    # K4: events per block with one wave of 512 or more
+BWD_EVENTS = 192           # K5: events per block
+BWD_EVENTS_MAX = 288       # 32 x kEventWarpsMax
 
 _loaded: dict = {}
 _lock = threading.Lock()
@@ -106,7 +111,7 @@ def build():
                   i32]
         lib.iwe_pano_vote_fwd.argtypes = [*common, p, p]
         lib.iwe_pano_vote_fwd.restype = i32
-        lib.iwe_pano_vote_bwd.argtypes = [*common, p, p, p, p, p]
+        lib.iwe_pano_vote_bwd.argtypes = [*common, p, p, p, p]
         lib.iwe_pano_vote_bwd.restype = i32
         lib.iwe_pano_error_string.argtypes = [i32]
         lib.iwe_pano_error_string.restype = ctypes.c_char_p
@@ -171,24 +176,32 @@ def check_operands(ops: PanoOperands, device_type: str = "cuda") -> tuple:
     return M, K, B, N // B
 
 
-def fwd_batches(ebs: int) -> int:
-    """K4's batches per block: whole batches of about FWD_EVENTS events."""
-    return max(1, min(MAX_BATCHES, FWD_EVENTS // ebs))
+def events_cap(ebs: int) -> int:
+    """The most events a block takes for batches of ``ebs`` events: it
+    touches at most (events + ebs - 2) // ebs + 1 batches, and at most
+    MAX_BATCHES of them."""
+    return (MAX_BATCHES - 1) * ebs + 1
 
 
-def bwd_batches(B: int) -> int:
-    """K5's batches per block: a warp per batch, BWD_WARPS at a time, and
-    more per block once the blocks per image would pass BWD_BLOCKS (so the
-    last block's sum over the blocks' partials stays short)."""
-    return min(MAX_BATCHES, BWD_WARPS * max(1, -(-B // (BWD_WARPS * BWD_BLOCKS))))
+def fwd_events(ebs: int, events: int, sm_count: int) -> int:
+    """K4's events per block for ``events`` (M x N) in all on a card of
+    ``sm_count`` SMs: 512 while blocks of 512 (two per SM) take them in one
+    wave, else 256 (tools/tune_pano_vote.py)."""
+    one_wave = events <= 2 * sm_count * FWD_EVENTS[0]
+    return min(FWD_EVENTS[0] if one_wave else FWD_EVENTS[1], events_cap(ebs))
+
+
+def bwd_events(ebs: int) -> int:
+    """K5's events per block (tools/tune_pano_vote.py)."""
+    return min(BWD_EVENTS, events_cap(ebs))
 
 
 def _args(ops: PanoOperands, M: int, K: int, B: int, ebs: int, height: int, width: int,
-          bpb: int) -> list:
+          per_block: int) -> list:
     return [ops.delta.data_ptr(), ops.knots.data_ptr(), ops.free.data_ptr(),
             ops.seg.data_ptr(), ops.coeff.data_ptr(), ops.bearings.data_ptr(),
             ops.weights.data_ptr(), None if ops.origin is None else ops.origin.data_ptr(),
-            M, K, B, ebs, ops.order, *ops.geometry, height, width, bpb]
+            M, K, B, ebs, ops.order, *ops.geometry, height, width, per_block]
 
 
 def _check(name: str, err: int, lib) -> None:
@@ -196,45 +209,52 @@ def _check(name: str, err: int, lib) -> None:
         raise RuntimeError(f"{name} failed: {lib.iwe_pano_error_string(err).decode()}")
 
 
-def launch_fwd(ops: PanoOperands, out: torch.Tensor, height: int, width: int) -> None:
+def launch_fwd(ops: PanoOperands, out: torch.Tensor, height: int, width: int,
+               per_block: Optional[int] = None) -> None:
     """One raw K4 launch into ``out`` ((M, height, width), zeroed by the
-    caller), on the current stream; not counted and allocating nothing
-    (chip_smoke times the kernel with it)."""
+    caller), on the current stream, with ``per_block`` events per block
+    (None: fwd_events'); not counted and allocating nothing (chip_smoke
+    times the kernel with it)."""
     M, K, B, ebs = check_operands(ops)
+    if per_block is None:
+        per_block = fwd_events(ebs, M * B * ebs, cuda_iwe.device_attrs(ops.delta.device)[0])
     lib = build()
     with torch.cuda.device(ops.delta.device):
         stream = torch.cuda.current_stream(ops.delta.device).cuda_stream
-        err = lib.iwe_pano_vote_fwd(*_args(ops, M, K, B, ebs, height, width, fwd_batches(ebs)),
+        err = lib.iwe_pano_vote_fwd(*_args(ops, M, K, B, ebs, height, width, per_block),
                                     out.data_ptr(), stream)
     _check("iwe_pano_vote_fwd launch", err, lib)
 
 
-def bwd_scratch(ops: PanoOperands) -> tuple:
-    """K5's scratch for these operands: (the per-block partials, the
-    completion counter, zeroed)."""
+def bwd_scratch(ops: PanoOperands, per_block: Optional[int] = None) -> torch.Tensor:
+    """K5's scratch for these operands: the partials of its blocks of
+    ``per_block`` events (None: bwd_events'), (M, blocks, 3K)."""
     M, K, _ = ops.delta.shape
-    B = ops.seg.shape[0]
-    dev = ops.delta.device
-    blocks = -(-B // bwd_batches(B))
-    return (torch.empty((M, blocks, 3 * K), dtype=torch.float32, device=dev),
-            torch.zeros(1, dtype=torch.int32, device=dev))
+    N = ops.weights.shape[0]
+    per_block = per_block or bwd_events(N // ops.seg.shape[0])
+    return torch.empty((M, -(-N // per_block), 3 * K), dtype=torch.float32,
+                       device=ops.delta.device)
 
 
-def launch_bwd(ops: PanoOperands, g: torch.Tensor, part: torch.Tensor, counter: torch.Tensor,
-               out: torch.Tensor) -> None:
-    """One raw K5 launch: dL/ddelta into ``out`` (M, K, 3) from ``g``
-    (M, H, W), with ``part`` and ``counter`` from bwd_scratch (the counter
-    zeroed), on the current stream; not counted and allocating nothing."""
+def launch_bwd(ops: PanoOperands, g: torch.Tensor, part: torch.Tensor, out: torch.Tensor,
+               per_block: Optional[int] = None) -> None:
+    """One raw K5 launch (its two kernels) with ``per_block`` events per
+    block (None: bwd_events'): dL/ddelta into ``out`` (M, K, 3) from ``g``
+    (M, H, W), with ``part`` from bwd_scratch(ops, per_block), on the
+    current stream; not counted and allocating nothing."""
     M, K, B, ebs = check_operands(ops)
     if (g.device != ops.delta.device or g.dtype != torch.float32 or not g.is_contiguous()
             or g.dim() != 3 or g.shape[0] != M):
         raise ValueError("g must be a contiguous float32 (M, H, W) tensor beside the operands")
+    per_block = per_block or bwd_events(ebs)
+    if part.shape != (M, -(-B * ebs // per_block), 3 * K) or not part.is_contiguous():
+        raise ValueError("part does not match the launch: use bwd_scratch(ops, per_block)")
     lib = build()
     with torch.cuda.device(ops.delta.device):
         stream = torch.cuda.current_stream(ops.delta.device).cuda_stream
         err = lib.iwe_pano_vote_bwd(
-            *_args(ops, M, K, B, ebs, g.shape[1], g.shape[2], bwd_batches(B)), g.data_ptr(),
-            part.data_ptr(), counter.data_ptr(), out.data_ptr(), stream)
+            *_args(ops, M, K, B, ebs, g.shape[1], g.shape[2], per_block), g.data_ptr(),
+            part.data_ptr(), out.data_ptr(), stream)
     _check("iwe_pano_vote_bwd launch", err, lib)
 
 
@@ -251,9 +271,9 @@ def pano_vote_fwd(ops: PanoOperands, height: int, width: int) -> torch.Tensor:
 
 def pano_vote_bwd(ops: PanoOperands, g: torch.Tensor) -> torch.Tensor:
     """K5: dL/ddelta (M, K, 3) from g = dL/dimage (M, H, W)."""
-    part, counter = bwd_scratch(ops)
+    part = bwd_scratch(ops)
     out = torch.empty_like(ops.delta)
-    launch_bwd(ops, g, part, counter, out)
+    launch_bwd(ops, g, part, out)
     cuda_iwe._launched("pano_bwd", f"o{ops.order}",
                        (g.shape[0], ops.weights.shape[0], g.shape[1], g.shape[2]))
     return out

@@ -14,12 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+import cmax_slam_tpu_torch.config as tconfig
 from cmax_slam_tpu_torch import lie
 from cmax_slam_tpu_torch.calib import CameraCalibration
-from cmax_slam_tpu_torch.config import (
-    BackendConfig, FrontendConfig, PanoMapOptions, SlidingWindowOptions,
-    SystemConfig, TrajectoryOptions, WarpOptions,
-)
 from cmax_slam_tpu_torch.io import synthetic
 from cmax_slam_tpu_torch.system import CMaxSLAM
 from cmax_slam_tpu_torch.utils.evaluate import rotation_rms_deg
@@ -31,34 +28,44 @@ pytestmark = pytest.mark.slow
 torch.set_num_threads(1)
 
 
-def _run(bootstrap, duration=0.7, n=70000):
+def _stream(duration=0.7, n=70000):
     rng = np.random.default_rng(3)
     rot_fn, omega_fn = smooth_rot_fn(duration)
     ev = synthetic.rotating_camera_events(
         rng, n, duration, np.zeros(3), FX, FY, W / 2, H / 2, W, H,
         n_points=250, rot_fn=rot_fn,
     )
-    calib = CameraCalibration(
-        width=W, height=H,
-        K=np.array([[FX, 0, W / 2], [0, FY, H / 2], [0, 0, 1.0]]),
-    )
-    cfg = SystemConfig(
-        frontend=FrontendConfig(
+    return ev, rot_fn
+
+
+def _config(c, bootstrap):
+    """The configuration, built from the config module ``c`` of either
+    package."""
+    return c.SystemConfig(
+        frontend=c.FrontendConfig(
             num_events_per_packet=4000, dt_ang_vel=0.02,
-            warp=WarpOptions(blur_sigma=1.0, event_batch_size=100),
+            warp=c.WarpOptions(blur_sigma=1.0, event_batch_size=100),
         ),
-        backend=BackendConfig(
-            sliding_window=SlidingWindowOptions(0.2, 0.1),
-            warp=WarpOptions(blur_sigma=1.0, event_batch_size=100),
-            trajectory=TrajectoryOptions(dt_knots=0.05, spline_degree=1),
-            pano_map=PanoMapOptions(
+        backend=c.BackendConfig(
+            sliding_window=c.SlidingWindowOptions(0.2, 0.1),
+            warp=c.WarpOptions(blur_sigma=1.0, event_batch_size=100),
+            trajectory=c.TrajectoryOptions(dt_knots=0.05, spline_degree=1),
+            pano_map=c.PanoMapOptions(
                 pano_height=256, pano_width=512, backend_min_ev_rate=10000,
                 max_update_times=200,
             ),
             bootstrap_resolve_window=bootstrap,
         ),
     )
-    slam = CMaxSLAM(calib, cfg, device="cpu")
+
+
+K = np.array([[FX, 0, W / 2], [0, FY, H / 2], [0, 0, 1.0]])
+
+
+def _run(bootstrap, duration=0.7, n=70000):
+    ev, rot_fn = _stream(duration, n)
+    calib = CameraCalibration(width=W, height=H, K=K)
+    slam = CMaxSLAM(calib, _config(tconfig, bootstrap), device="cpu")
     for i in range(0, n, 20000):
         slam.push_events(ev.xs[i:i + 20000], ev.ys[i:i + 20000],
                          ev.ts[i:i + 20000], ev.pols[i:i + 20000])
@@ -80,7 +87,9 @@ def _rms(slam, rot_fn):
     "(t = 0.31) that the second entry leans on and moves it 0.0611 deg in the "
     "port against 0.0181 in JAX, past the gate's ~0.051 deg; the packages part "
     "from window 0 on (20 line searches in the port against 12 in JAX, cost "
-    "-3.200500 against -3.191888), no window rejected, no semantic difference"))
+    "-3.200500 against -3.191888; on JAX's front-end estimates 21 against 12, "
+    "traced in test_bootstrap_window0_parts_at_the_keep_test_tie), no window "
+    "rejected, no semantic difference"))
 def test_bootstrap_resolve_fires_and_helps():
     slam, rot_fn = _run(bootstrap=3)
     be = slam.backend
@@ -135,3 +144,33 @@ def test_bootstrap_refresh_holds_when_the_resolve_returns(monkeypatch):
 def test_bootstrap_retention_then_release():
     slam, _ = _run(bootstrap=3)
     assert slam.backend.store.base > 0
+
+
+def test_bootstrap_window0_parts_at_the_keep_test_tie(monkeypatch, tmp_path):
+    """The trace of the marked miss above (ROADMAP Queue 3): window 0 on
+    JAX's front-end estimates, solved by both packages decision by decision
+    (tests/test_torch_oracle_parity.py's tracer). Both take the same
+    decisions on costs equal to float32 rounding until the first secant
+    step of line search 1 re-evaluates the bracket's winning point with its
+    gradient: JAX's value there is 1-2 ulps above its forward-only value of
+    the same point, so JAX does not keep the point and the port does. The
+    two solves then run 12 and 21 line searches."""
+    import cmax_slam_tpu.calib as jcalib
+    import cmax_slam_tpu.config as jconfig
+    import cmax_slam_tpu.system as jsystem
+    from test_torch_oracle_parity import (assert_parts_at_the_keep_test_tie,
+                                          trace_window_from_jax_state)
+
+    ev, _ = _stream()
+
+    def make_jax():
+        return jsystem.CMaxSLAM(jcalib.CameraCalibration(width=W, height=H, K=K),
+                                _config(jconfig, 3))
+
+    def make_port():
+        return CMaxSLAM(CameraCalibration(width=W, height=H, K=K), _config(tconfig, 3),
+                        device="cpu")
+
+    traced = trace_window_from_jax_state(monkeypatch, make_jax, make_port, ev, 0,
+                                         _config(tconfig, 3).backend.optim, tmp_path)
+    assert_parts_at_the_keep_test_tie(*traced)

@@ -539,3 +539,90 @@ def test_windows_from_jax_state_part_where_a_stop_test_flips(stream, jax_chain, 
                   f"{unkept}, the start gradient returned in {stale}")
     finally:
         clear()
+
+
+def trace_window_from_jax_state(monkeypatch, make_jax, make_port, ev, window, optim,
+                                tmp_path, chunk=2_000):
+    """Where the two packages part on another stream and configuration (the
+    half-empty windows, the bootstrap run): JAX's system runs ``ev`` in
+    pushes of ``chunk`` events, checkpointed after each push that completes
+    a window; the push that completes ``window`` is replayed from the
+    checkpoint before it (or from a fresh system for window 0) in both
+    packages, fed JAX's front-end estimates, with every BA solve traced
+    decision by decision. Returns, for the replay's first solve (the
+    window's own), (JAX's decisions, the port's, the first that differs,
+    JAX's line searches, the port's). ``optim`` is the back-end's optim
+    options (the tests' tolerances)."""
+    import jax
+    from cmax_slam_tpu import backend as jbackend
+
+    n = len(ev.ts)
+
+    def drive(slam, lo, omegas=None):
+        start, i = slam.backend.count_window, lo
+        while i < n:
+            j = min(i + chunk, n)
+            slam._raw_count += j - i
+            ests = slam.frontend.push_events(ev.xs[i:j], ev.ys[i:j], ev.ts[i:j], ev.pols[i:j])
+            if omegas is None:
+                slam.frontend.finalize_batch(ests)
+            for e in ests:
+                w = e.omega if omegas is None else omegas[round(e.t, 9)]
+                slam.backend.push_ang_vel(e.t, np.asarray(w, np.float64))
+            while slam.backend.ready():
+                slam.backend.step()
+            i = j
+            if slam.backend.count_window > start:
+                break
+        return i
+
+    slam, cut, i = make_jax(), (0, None), 0
+    while i < n and slam.backend.count_window <= window:
+        if slam.backend.count_window == window and window > 0:
+            cut = (i, str(tmp_path / f"cut_{window}.npz"))
+            slam.save_checkpoint(cut[1])
+        i = drive(slam, i)
+    omegas = {round(t, 9): w for t, *w in slam.ang_vel_log.tolist()}
+    port_solves, jax_events = [], []
+    _trace_port(monkeypatch, port_solves)
+    clear = _trace_jax(monkeypatch, jax_events)
+    jbackend._build_crop_solver.cache_clear()
+    try:
+        for make in (make_jax, make_port):
+            replay = make()
+            if cut[1] is not None:
+                replay.load_checkpoint(cut[1])
+            drive(replay, cut[0], omegas)
+            jax.effects_barrier()
+    finally:
+        clear()
+        jbackend._build_crop_solver.cache_clear()
+    js, ps = _jax_solves(jax_events)[0], port_solves[0]
+    dj = _decisions(js, optim.line_search_tol, optim.fun_tol, optim.grad_tol)
+    dp = _decisions(ps, optim.line_search_tol, optim.fun_tol, optim.grad_tol)
+    firsts = _first_differences(dj, dp)
+    for test, key in firsts.items():
+        print(f"window {window}: first that differs{'' if test == 'any' else ' of its test'}: "
+              + _show(dj, dp, key))
+    print(f"window {window}: line searches {len(js)} JAX, {len(ps)} port; costs "
+          f"{js[0]['f0']:.7f} -> {js[-1]['f']:.7f} JAX, {ps[0]['f0']:.7f} -> {ps[-1]['f']:.7f} port")
+    return dj, dp, firsts.get("any"), js, ps
+
+
+def assert_parts_at_the_keep_test_tie(dj, dp, first, js, ps):
+    """The decisions before the first that differs are the same, the costs
+    they read agree to float32 rounding (1e-5 relative), and the first
+    difference is the tie that test_windows_from_jax_state_part_where_a_
+    stop_test_flips finds: a first secant step's value-and-gradient
+    evaluation of the bracket's winning point against the bracket's
+    forward-only value of the same point, within 1e-6 relative."""
+    assert first is not None, "the packages take the same decisions"
+    order = list(dj)
+    before = (order[:order.index(first)] if first in dj
+              else [key for key in order if key[0] < first[0]])
+    assert all(key in dp and dj[key][2] == dp[key][2] for key in before)
+    assert first[1:] == ("secant f <= best", 0)
+    value, bracket, _ = dj[first]
+    assert abs(value - bracket) / abs(bracket) < 1e-6
+    for rj, rp in zip(js[:first[0] + 1], ps):
+        assert abs(rj["f0"] - rp["f0"]) / abs(rj["f0"]) < 1e-5

@@ -230,11 +230,13 @@ def _image_from_rotmats(R, win, pano, hw, origin):
 
 
 def _k5_decomposition(delta, win, pano, order, hw, origin, basis, g):
-    """dL/ddelta for one candidate, L = <g, image>, as K5 evaluates it:
-    dL/dR_b by autograd of the vote through the projection, then per batch
-    and per direction d of its 3 x order knot parameters
-    <dL/dR_b, dR_b/ddelta_d> with dR_b/ddelta_d from torch.func.jvp of the
-    batch's spline, summed into the knots the batch touches."""
+    """dL/ddelta for one candidate, L = <g, image>, as K5 evaluates it: per
+    batch one forward-mode pass (torch.func.jvp) of the batch's spline along
+    each direction d of its 3 x order knot parameters, whose primal is R_b
+    and whose tangent is dR_b/ddelta_d; dL/dR_b by autograd of the vote
+    through the projection from that primal; then <dL/dR_b, dR_b/ddelta_d>
+    summed into the knots the batch touches. Returns (dL/ddelta, the
+    primals of the 3 x order passes, R_b from the float pass)."""
     seg, coeff = basis
     K = win.knots.shape[0]
     idx = seg.long()[:, None] + torch.arange(order)  # (B, order)
@@ -244,16 +246,18 @@ def _k5_decomposition(delta, win, pano, order, hw, origin, basis, g):
     def rot(dl):
         return _local_rotmats(dl, knots_local, free_local, coeff, order)
 
-    R = rot(delta_local).detach().requires_grad_(True)
-    (gR,) = torch.autograd.grad(_image_from_rotmats(R, win, pano, hw, origin), R, g)
-    out = torch.zeros((K, 3))
+    passes = []
     for j in range(order):
         for c in range(3):
             tangent = torch.zeros_like(delta_local)
             tangent[:, j, c] = 1.0
-            _, dR = torch.func.jvp(rot, (delta_local,), (tangent,))
-            out[:, c].index_add_(0, idx[:, j], (gR * dR).sum((1, 2)))
-    return out
+            passes.append((j, c, *torch.func.jvp(rot, (delta_local,), (tangent,))))
+    R = passes[0][2].detach().requires_grad_(True)
+    (gR,) = torch.autograd.grad(_image_from_rotmats(R, win, pano, hw, origin), R, g)
+    out = torch.zeros((K, 3))
+    for j, c, _, dR in passes:
+        out[:, c].index_add_(0, idx[:, j], (gR * dR).sum((1, 2)))
+    return out, [p[2] for p in passes], rot(delta_local)
 
 
 def _seam_window(win):
@@ -308,7 +312,9 @@ def test_gradient_decomposition_matches_autograd(order, image):
     d = delta.clone().requires_grad_(True)
     (want,) = torch.autograd.grad(
         warp_pano.pano_vote_plain(d, win, pano, order, hw, origin, basis), d, g)
-    got = _k5_decomposition(delta, win, pano, order, hw, origin, basis, g)
+    got, primals, R_float = _k5_decomposition(delta, win, pano, order, hw, origin, basis, g)
+    # every forward-mode pass's primal is the float pass's R, bit for bit
+    assert len(primals) == 3 * order and all(torch.equal(p, R_float) for p in primals)
     scale = float(want.abs().max())
     assert scale > 0
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5 * scale)
@@ -436,14 +442,65 @@ def test_operand_checks_raise_on_what_the_kernels_do_not_take():
             cuda_pano_vote.check_operands(b, "cpu")
 
 
+def _event_blocks(n, ebs, epb):
+    """K4's and K5's blocks as the kernels derive them (event_span in
+    csrc/pano_vote.cu): (first event, events, first batch, offset of the
+    first event in its batch, batches)."""
+    for e0 in range(0, n, epb):
+        cnt = min(epb, n - e0)
+        b0, off = divmod(e0, ebs)
+        yield e0, cnt, b0, off, (off + cnt - 1) // ebs + 1
+
+
+def _k5_batch_sums(vals, ebs, off, cnt, nb, chunks=8):
+    """Per batch of one K5 block, the sum of its events' values (cnt,) as
+    the kernel forms it: ``chunks`` runs of the batch's events in the
+    block, each summed in order, then the runs as a fixed tree."""
+    sums = []
+    for lb in range(nb):
+        lo, hi = max(0, lb * ebs - off), min(cnt, (lb + 1) * ebs - off)
+        n = -(-(hi - lo) // chunks)
+        p = [np.float32(0)] * chunks
+        for c in range(chunks):
+            for e in range(lo + c * n, min(hi, lo + (c + 1) * n)):
+                p[c] = np.float32(p[c] + vals[e])
+        sums.append(((p[0] + p[1]) + (p[2] + p[3])) + ((p[4] + p[5]) + (p[6] + p[7])))
+    return np.array(sums, np.float32)
+
+
+@pytest.mark.parametrize("order", [2, 4])
 @pytest.mark.parametrize("ebs, B", [(100, 1024), (100, 7680), (3, 5), (2000, 50)])
-def test_blocks_take_whole_batches(ebs, B):
-    """K4 takes about FWD_EVENTS events of whole batches per block, K5 a
-    warp per batch with more batches per block past BWD_BLOCKS blocks; both
-    within the kernels' shared arrays."""
-    f = cuda_pano_vote.fwd_batches(ebs)
-    assert 1 <= f <= cuda_pano_vote.MAX_BATCHES
-    assert f * ebs <= max(cuda_pano_vote.FWD_EVENTS, ebs)
-    b = cuda_pano_vote.bwd_batches(B)
-    assert b % cuda_pano_vote.BWD_WARPS == 0 and b <= cuda_pano_vote.MAX_BATCHES
-    assert -(-B // b) <= cuda_pano_vote.BWD_BLOCKS or b == cuda_pano_vote.MAX_BATCHES
+def test_blocks_take_whole_batches(ebs, B, order):
+    """A block of either kernel takes consecutive events across batch
+    boundaries, a thread each (K4 512 of them while one wave of such blocks
+    holds every event, else 256): every event in exactly one block, each
+    thread's batch the event's, a block's batches within the kernels'
+    shared arrays (MAX_BATCHES). K5's per-batch sums of its events' dL/dR,
+    formed in runs as the kernel forms them, hold every event of the batch
+    that lies in the block once (a batch split between two blocks: its two
+    parts). The window's spline segments
+    (spline.segment_basis) read knots s .. s + order - 1 < K <= MAX_KNOTS."""
+    n, sms = B * ebs, 132
+    rng = np.random.default_rng(ebs)
+    vals = rng.integers(-8, 8, n).astype(np.float32)  # exact sums in any order
+    fwd = cuda_pano_vote.fwd_events(ebs, n, sms)
+    wave = 2 * sms * cuda_pano_vote.FWD_EVENTS[0]  # events in one wave of 512-event blocks
+    assert fwd == min(cuda_pano_vote.FWD_EVENTS[n > wave], cuda_pano_vote.events_cap(ebs))
+    bwd = cuda_pano_vote.bwd_events(ebs)
+    assert 1 <= bwd <= cuda_pano_vote.BWD_EVENTS_MAX
+    for per_block in (fwd, bwd):
+        seen = np.zeros(n, np.int64)
+        batch_sums = np.zeros(B, np.float32)
+        for e0, cnt, b0, off, nb in _event_blocks(n, ebs, per_block):
+            assert 1 <= nb <= cuda_pano_vote.MAX_BATCHES and b0 + nb <= B
+            t = np.arange(cnt)
+            assert np.array_equal(b0 + (off + t) // ebs, (e0 + t) // ebs)
+            seen[e0:e0 + cnt] += 1
+            batch_sums[b0:b0 + nb] += _k5_batch_sums(vals[e0:e0 + cnt], ebs, off, cnt, nb)
+        assert (seen == 1).all()
+        np.testing.assert_array_equal(batch_sums, vals.reshape(B, ebs).sum(1))
+
+    K = {2: 6, 4: 8}[order]
+    t = torch.linspace(-0.1, 0.4, B)  # clamped at both ends
+    seg, _ = spline.segment_basis(t, 0.0, 0.05, K, order)
+    assert int(seg.min()) >= 0 and int(seg.max()) + order <= K <= cuda_pano_vote.MAX_KNOTS
