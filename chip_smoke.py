@@ -32,8 +32,10 @@ Phases, in order; any failure exits non-zero:
    Then K3 (vote_jvp) against its plain version at one window's derivative
    images (15 tangents of 84 700 events on 512x1024) and a small shape, with
    dropped events (their NaN tangents never read) and dropped events alone
-   voting zero; device time with its zero fill, the fill alone and K3 alone
-   beside the bound, the launch floor, wrapper and plain times.
+   voting zero, this tree's kernel and with --parent the parent's K3
+   (ParentJvp); device times with the zero fill in turns, the fill alone
+   and this tree's kernel alone beside the bound, the launch floor, wrapper and plain times, and how the events
+   share floor pixels (pile_stats).
    Then K4 and K5 (csrc/pano_vote.cu: the back-end objective's spline, warp
    and vote, forward and backward) against their plain version
    (warp_pano.pano_vote_plain and autograd) at phase 4's crop window (6
@@ -45,11 +47,16 @@ Phases, in order; any failure exits non-zero:
    knot, two K5 launches torch.equal; device times (with --parent the
    parent's K4/K5 too, in turns) beside the bound and the launch floor, the
    wrapper's, the plain version's and the composed route's (K1/K2) times.
-   Then the loop predicate: a WHILE node with a nested IF node run as one
-   graph against the same program with its gates read on the host (equal
-   results and predicate executions), with the time per iteration of each
-   and the predicate kernel's own device time; and three launches of one
-   program in flight together, each fetching its own number;
+   Then the loop predicate: a WHILE node gated on a mask of 1, 24 and 2016
+   lanes (live lanes first, middle, last, all, none) and an iteration
+   counter under a limit, with a nested IF node, run as one graph against
+   the same program with its gates read on the host (equal results and
+   predicate executions), the predicate kernel's own device time by gate
+   length, the time per loop iteration of tools/loop_latency.py's bodies
+   (empty, one kernel, one kernel in two segments, the check body, and an
+   unfolded gate), the check body also with the host gate; and three
+   launches of one program in flight together, each fetching its own
+   number;
 4. system: CMaxSLAM on the stock ijrr preset, driven through push_events on a
    2.0 s synthetic 240x180 stream at 390k ev/s (make_stream), must keep its
    state on the card, gather its packets from the device event ring (the
@@ -68,8 +75,9 @@ Phases, in order; any failure exits non-zero:
    the explicit waits by call site); each window comes back from step() or
    flush() exactly once. Prints graph launches per path, the loop
    predicate's executions, captures and their seconds, the waits per
-   packet, per stride and per window and the peak device memory; K4 and K5
-   must have run. A captured evaluation
+   packet, per stride and per window and the peak device memory, and the
+   nodes of one CG iteration of the packet and crop-window programs; K4
+   and K5 must have run. A captured evaluation
    of the packet objective must match the same objective on the plain vote
    on the card, and one of the crop objective (through K4/K5) the composed
    route (K1/K2) and the plain version; each objective's evaluation
@@ -82,7 +90,9 @@ Phases, in order; any failure exits non-zero:
    phase 4's widest window program's last window (derivative_images through
    K3 against the plain tangent vote on the card, and torch.func.jvp of
    pano_iwe, through Vote.jvp, against two of its slices; K3's launches
-   counted on that path); then the same stream on the
+   counted on that path; K3, and the parent's with --parent,
+   checked and timed on that window's own coordinates and tangents); then
+   the same stream on the
    per-packet schedule from the host store (frontend.device_store=False,
    batch_sweeps=0), with the same checks, the same packet grid and a median
    omega difference under 0.01 rad/s (the schedules give bit-equal solver
@@ -133,11 +143,17 @@ Phases, in order; any failure exits non-zero:
    live segments on distinct pool entries.
 
 With ``--parent DIR`` (an unpacked checkout of another commit) phase 3
-also builds the parent's csrc/pano_vote.cu and holds and times its K4/K5
-in turns with this tree's (ParentPanoVote: PR 11's launch plan and C
-interface), phase 4 captures the crop evaluation through them too, and at
-the end it times phase 4 on both trees in turns, each turn a process of its
-own.
+also builds the parent's csrc/iwe.cu and, where it differs from this
+tree's, its csrc/pano_vote.cu, and holds and times its K3 and K4/K5 in
+turns with this tree's (ParentJvp: the C interface read from the
+parent's source, which must be this tree's; ParentPanoVote: the launch
+plan and C interface of the first K4/K5 design), phase 4 captures the crop evaluation
+through the parent's K4/K5 too, and at the end it times the loop bodies
+(tools/loop_latency.py) and phase 4 on both trees in turns, each turn a
+process of its own, and prints the nodes of one CG iteration of each
+tree's packet and crop-window programs and how many fewer per gate this
+tree's take; ``--fewer-nodes-per-gate K`` fails the run unless both
+programs take at least K fewer per gate than the parent's.
 
 Before the last line it prints one JSON object with every kernel's route,
 source, launches on each path (the system runs of phase 4, its derivative
@@ -664,65 +680,179 @@ def check_bwd_wide(rng, attrs) -> float:
     return err
 
 
-def check_jvp(rng, floor_ms: float) -> dict:
-    """Phase 3's K3 part: vote_jvp against its plain version
-    (scatter.bilinear_accumulate_jvp) on the card at JVP_SHAPES, with
-    _events' dropped events (NaN and infinite coordinates, whose tangents
-    are NaN too: never read, weight-0 padding), and the dropped events alone
-    voting all-zero images; device times in turns (K3 with the zero fill of
-    its output, the fill alone, K3 alone on a zeroed output) beside the
-    bound and the launch floor; wrapper and plain times. No one PyTorch call
-    computes the function (library_ms null). Returns per shape its numbers,
-    and the max error over all shapes."""
+class ParentJvp:
+    """K3 of another commit's tree (``chip_smoke.py --parent DIR``): its
+    csrc/iwe.cu built beside this tree's and launched through its
+    ``iwe_vote_jvp``, for K3's times in turns with this tree's. The C
+    interface is read from the parent's source: it must be this tree's
+    (K3's interface has not changed since K3 was added), or the parent is
+    refused."""
+
+    def __init__(self, root: str):
+        from cmax_slam_tpu_torch.ops import cuda_iwe, nvcc
+
+        self.src = Path(root) / "cmax_slam_tpu_torch" / "csrc" / "iwe.cu"
+        mine, theirs = (_c_signature(f, "iwe_vote_jvp") for f in (cuda_iwe.SOURCE, self.src))
+        if theirs != mine:
+            raise RuntimeError(f"the parent's iwe_vote_jvp takes ({theirs}), not this tree's "
+                               f"({mine}): its K3 cannot be launched here")
+        self.flags = cuda_iwe.nvcc_flags()
+        self.path = nvcc.library_path(self.src, self.flags, "libiwe_parent")
+        self.lib = None
+
+    def build_job(self) -> tuple:
+        return self.src, self.flags, self.path
+
+    def launch(self, px, py, w, tpx, tpy, out, b: int, height: int, width: int) -> None:
+        import ctypes
+        import torch
+        from cmax_slam_tpu_torch.ops import cuda_iwe
+
+        if self.lib is None:
+            lib = ctypes.CDLL(str(self.path))
+            lib.iwe_vote_jvp.argtypes = cuda_iwe.build().iwe_vote_jvp.argtypes
+            lib.iwe_vote_jvp.restype = ctypes.c_int
+            self.lib = lib
+        err = self.lib.iwe_vote_jvp(
+            px.data_ptr(), py.data_ptr(), w.data_ptr(), b // px.shape[0], b // py.shape[0],
+            b // w.shape[0], tpx.data_ptr(), tpy.data_ptr(), b // tpx.shape[0],
+            b // tpy.shape[0], out.data_ptr(), b, px.shape[1], height, width,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent iwe_vote_jvp launch failed: error {err}")
+
+
+def _c_signature(path: Path, name: str) -> str:
+    """The parameter list of C function ``name`` in source ``path``, with
+    its white space collapsed."""
+    import re
+
+    m = re.search(rf"\bint {name}\(([^)]*)\)", path.read_text())
+    if m is None:
+        raise RuntimeError(f"{path} defines no {name}")
+    return " ".join(m.group(1).split())
+
+
+PARENT_JVP: ParentJvp | None = None  # set by --parent DIR
+JVP_FLOOR_MS = float("nan")  # the launch floor, set by main from phase 3
+
+
+def pile_stats(px, py, wt, H: int, W: int) -> dict:
+    """How a K3 input's kept events share floor pixels: within each warp of
+    32 consecutive events (the share of warps where some lanes share one,
+    the mean largest group), and over the whole input (distinct pixels,
+    the largest count on one pixel)."""
+    x, y, w = (t.reshape(-1).cpu().numpy() for t in (px, py, wt))
+    with np.errstate(invalid="ignore"):
+        fx, fy = np.floor(x), np.floor(y)
+        keep = (fx >= 1) & (fx < W - 2) & (fy >= 1) & (fy < H - 2) & (w != 0)
+    key = np.where(keep, np.nan_to_num(fy) * W + np.nan_to_num(fx), -1).astype(np.int64)
+    pad = (-len(key)) % 32
+    warps = np.concatenate([key, np.full(pad, -1)]).reshape(-1, 32)
+    largest, shared = [], 0
+    for row in warps:
+        live = row[row >= 0]
+        if len(live):
+            counts = np.unique(live, return_counts=True)[1]
+            largest.append(int(counts.max()))
+            shared += int(counts.max() > 1)
+    _, counts = np.unique(key[keep], return_counts=True)
+    return {"kept": int(keep.sum()), "warps_with_shared_pixel": shared / max(1, len(largest)),
+            "mean_largest_group": float(np.mean(largest)) if largest else 0.0,
+            "pixels": int(len(counts)), "max_on_one_pixel": int(counts.max()) if len(counts) else 0}
+
+
+def jvp_case(tag, px, py, wt, tpx, tpy, H, W, dropped, floor_ms) -> dict:
+    """K3 at one input: this tree's kernel (and the parent's with --parent)
+    against the plain version (scatter.bilinear_accumulate_jvp), within
+    1e-5 of the largest pixel, and the dropped events alone voting all-zero
+    images; device times of each with the zero fill of its output, in turns
+    (this, parent, parent, this), the fill alone and this kernel alone;
+    wrapper and plain times."""
     import torch
     from cmax_slam_tpu_torch.ops import cuda_iwe, scatter
+
+    T, n = tpx.shape
+    ref = scatter.bilinear_accumulate_jvp(px[0], py[0], wt[0], tpx, tpy, H, W)
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    img = torch.empty((T, H, W), device="cuda")
+    mine = f"{cuda_iwe.JVP_ITEMS}/{cuda_iwe.JVP_TANGENTS}"  # events a thread / tangents a chunk
+    launchers = {mine: lambda out, *a: cuda_iwe.launch_jvp(*(a or (px, py, wt, tpx, tpy)), out,
+                                                           T, H, W)}
+    if PARENT_JVP is not None:
+        launchers["parent"] = lambda out, *a: PARENT_JVP.launch(
+            *(a or (px, py, wt, tpx, tpy)), out, T, H, W)
+    dead = [t[:, dropped].contiguous() for t in (px, py, wt, tpx, tpy)]
+    errs = {}
+    for d, launch in launchers.items():
+        img.zero_()
+        launch(img)
+        torch.cuda.synchronize()
+        errs[d] = float((img - ref).abs().max())
+        if not (bool(torch.isfinite(img).all()) and errs[d] <= tol):
+            raise AssertionError(f"vote_jvp {tag} {d}: max err {errs[d]} > {tol}")
+        none = torch.zeros((T, H, W), device="cuda")
+        launch(none, *dead)
+        torch.cuda.synchronize()
+        if bool(none.any()):
+            raise AssertionError(f"vote_jvp {tag} {d}: dropped events voted")
+    got = cuda_iwe.vote_jvp(px, py, wt, tpx, tpy, H, W, T)
+    err = float((got - ref).abs().max())
+    if not (got.shape == ref.shape and err <= tol):
+        raise AssertionError(f"vote_jvp {tag}: wrapper max err {err} > {tol}")
+
+    def with_fill(launch):
+        def call():
+            img.zero_()
+            launch(img)
+        return call
+
+    order = list(launchers)
+    dev_t = {d: [] for d in order}
+    for d in order + order[::-1]:
+        dev_t[d].append(device_ms(with_fill(launchers[d]))[0])
+    fill = [device_ms(img.zero_)[0] for _ in range(2)]
+    alone = [device_ms(lambda: launchers[mine](img))[0] for _ in range(2)]
+    ms = _time_ms(lambda: cuda_iwe.vote_jvp(px, py, wt, tpx, tpy, H, W, T))
+    plain_ms = _time_ms(lambda: scatter.bilinear_accumulate_jvp(px[0], py[0], wt[0], tpx, tpy,
+                                                                H, W))
+    bd = bound("jvp", T, n, H, W, (1, 1))
+    dev_ms = float(np.mean(dev_t[mine]))
+    piles = pile_stats(px, py, wt, H, W)
+    entry = {**bd, "device_ms": dev_ms, "ms": ms, "plain_ms": plain_ms, "floor_ms": floor_ms,
+             "fill_ms": fill, "alone_ms": alone, "max_abs_err": errs[mine],
+             "designs": {d: {"device_ms": dev_t[d], "max_abs_err": errs[d]} for d in order},
+             "design": mine, "piles": piles}
+    _log(f"vote_jvp {tag:6s} T={T} N={n} {H}x{W}: piles {json.dumps(piles)}; max_abs_err "
+         + ", ".join(f"{d} {e:.3e}" for d, e in errs.items()) + f" (tol {tol:.3e}); device ms "
+         f"with the fill, in turns: " + "; ".join(
+             f"{d} {'/'.join(f'{a:.4f}' for a in dev_t[d])}" for d in order)
+         + f"; fill {'/'.join(f'{a:.4f}' for a in fill)}, {mine} alone "
+         f"{'/'.join(f'{a:.4f}' for a in alone)}; bound {bd['bytes'] / 1e6:.3f} MB, "
+         f"{bd['bound_ms'] * 1e3:.2f} us ({bd['bound_by']}), {mine} at "
+         f"{bd['bound_ms'] / dev_ms:.1%} of it; floor {floor_ms * 1e3:.2f} us; wrapper "
+         f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return entry
+
+
+def check_jvp(rng, floor_ms: float) -> dict:
+    """Phase 3's K3 part: vote_jvp at JVP_SHAPES (jvp_case) with _events'
+    dropped events (NaN and infinite coordinates, whose tangents are NaN
+    too: never read, weight-0 padding). No one PyTorch call computes the
+    function (library_ms null). Returns per shape its numbers, and the max
+    error over all shapes; run_derivative_images adds the real window's."""
+    import torch
 
     out = {"max_abs_err": 0.0, "by_shape": {}}
     for tag, T, n, H, W in JVP_SHAPES:
         px, py, wt = _events(rng, n, H, W, (1, 1), "cuda")
         tpx, tpy = (torch.tensor(rng.normal(size=(T, n)).astype(np.float32), device="cuda")
                     for _ in range(2))
-        dropped = _dropped(n)
         k = n // 5
         tpx[:, k:k + 3] = float("nan")
-        ref = scatter.bilinear_accumulate_jvp(px[0], py[0], wt[0], tpx, tpy, H, W)
-        got = cuda_iwe.vote_jvp(px, py, wt, tpx, tpy, H, W, T)
-        torch.cuda.synchronize()
-        tol = 1e-5 * max(1.0, float(ref.abs().max()))
-        err = float((got - ref).abs().max())
-        if not (got.shape == ref.shape and bool(torch.isfinite(got).all()) and err <= tol):
-            raise AssertionError(f"vote_jvp {tag}: max err {err} > {tol}")
-        dead = [t[:, dropped].contiguous() for t in (px, py, wt, tpx, tpy)]
-        if bool(cuda_iwe.vote_jvp(*dead, H, W, T).any()):
-            raise AssertionError(f"vote_jvp {tag}: dropped events voted")
-        img = torch.empty((T, H, W), device="cuda")
-
-        def launch(fill=True):
-            if fill:
-                img.zero_()
-            cuda_iwe.launch_jvp(px, py, wt, tpx, tpy, img, T, H, W)
-
-        timed = {"K3": launch, "fill": lambda: img.zero_(), "K3_alone": lambda: launch(False)}
-        dev_t = {v: [] for v in timed}
-        for v in ("K3", "fill", "K3_alone", "K3_alone", "fill", "K3"):
-            dev_t[v].append(device_ms(timed[v])[0])
-        ms = _time_ms(lambda: cuda_iwe.vote_jvp(px, py, wt, tpx, tpy, H, W, T))
-        plain_ms = _time_ms(lambda: scatter.bilinear_accumulate_jvp(px[0], py[0], wt[0], tpx,
-                                                                    tpy, H, W))
-        bd = bound("jvp", T, n, H, W, (1, 1))
-        dev_ms = float(np.mean(dev_t["K3"]))
-        entry = {**bd, "device_ms": dev_ms, "ms": ms, "plain_ms": plain_ms, "floor_ms": floor_ms,
-                 "fill_ms": dev_t["fill"], "alone_ms": dev_t["K3_alone"], "max_abs_err": err}
-        _log(f"vote_jvp {tag:6s} T={T} N={n} {H}x{W}: max_abs_err {err:.3e} (tol {tol:.3e}); "
-             f"device ms in turns K3 with its fill {'/'.join(f'{a:.4f}' for a in dev_t['K3'])}, "
-             f"fill {'/'.join(f'{a:.4f}' for a in dev_t['fill'])}, K3 alone "
-             f"{'/'.join(f'{a:.4f}' for a in dev_t['K3_alone'])}; bound {bd['bytes'] / 1e6:.3f} "
-             f"MB, {bd['bound_ms'] * 1e3:.2f} us ({bd['bound_by']}), at "
-             f"{bd['bound_ms'] / dev_ms:.1%} of it; floor {floor_ms * 1e3:.2f} us; wrapper "
-             f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-        out["max_abs_err"] = max(out["max_abs_err"], err)
+        entry = jvp_case(tag, px, py, wt, tpx, tpy, H, W, _dropped(n), floor_ms)
+        out["max_abs_err"] = max(out["max_abs_err"], entry["max_abs_err"])
         out["by_shape"][tag] = entry
-        del img, got, ref, dead
     rep = out["by_shape"][JVP_SHAPES[0][0]]
     T, n, H, W = JVP_SHAPES[0][1:]
     out.update(shape=f"{JVP_SHAPES[0][0]} {T}x{n}@{H}x{W}", ms=rep["ms"],
@@ -2147,37 +2277,39 @@ def run_replay(devices=("cuda:0", "cuda:0"), duration: float = 2.0):
     return launches, checks
 
 
-def check_loop_pred() -> dict:
-    """The loop predicate (csrc/loop.cu) against its plain version, the host
-    gate: a program counting a register down under a WHILE node, with an IF
-    node on every third value, run as one graph on the card and eagerly with
-    its gates read on the host; the same counts and the same executions
-    (max_abs_err 0). Times per iteration: the graph (predicate, conditional
-    node and a one-kernel body) against the host gate (the same body
-    launched from Python and one flag read), for 1000 iterations, and the
-    predicate kernel's own device time (torch.profiler, mean over its
-    executions in three runs; None if the profiler records no kernel inside
-    the graph). Then three launches of one program queued behind a sleeping
-    kernel, in flight together: each must fetch its own number."""
+GATE_LANES = (1, 24, 2016)  # a packet solve, a stride's lanes, phase 6's widest round
+GATE_PATTERNS = ("first", "middle", "last", "all", "none")  # where the live lanes are
+
+
+def _gate_program(L: int, pattern: str):
+    """A program over a gate of L lanes: each live lane's register counts
+    down under a WHILE node gated on the lanes' mask (reg > 0) and on an
+    iteration counter under a limit of 7 (folded into the predicate), with
+    an IF node on every third iteration; live lanes start at 3 + lane % 7."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from cmax_slam_tpu_torch.ops import device_loop
 
     dev = torch.device("cuda")
-    n_it = 1000
-    start = torch.tensor([float(n_it)], device=dev)
-    n, hits = torch.zeros(1, device=dev), torch.zeros(1, device=dev)
-    go, third = device_loop.flag(dev), device_loop.flag(dev)
+    lanes = np.arange(L)
+    live = {"first": lanes < 3, "middle": lanes == L // 2, "last": lanes == L - 1,
+            "all": lanes >= 0, "none": lanes < 0}[pattern]
+    start = torch.tensor(np.where(live, 3 + lanes % 7, 0).astype(np.float32), device=dev)
+    reg, hits = torch.zeros(L, device=dev), torch.zeros(1, device=dev)
+    it = torch.zeros(1, dtype=torch.int32, device=dev)
+    mask, third = device_loop.gate(dev, L), device_loop.gate(dev)
+    gate = device_loop.Gate(mask, it, device_loop.limit(7, dev))
 
     def init():
-        n.copy_(start)
+        reg.copy_(start)
         hits.zero_()
-        device_loop.set_flag(go, n > 0)
+        it.zero_()
+        torch.gt(reg, 0, out=mask)
 
     def step():
-        n.sub_(1.0)
-        device_loop.set_flag(third, torch.remainder(n, 3.0) == 0)
-        device_loop.set_flag(go, n > 0)
+        reg.sub_(mask.float())
+        it.add_(1)
+        torch.gt(reg, 0, out=mask)
+        torch.eq(torch.remainder(it, 3), 0, out=third)
 
     def build(b):
         b.seg(init)
@@ -2186,27 +2318,63 @@ def check_loop_pred() -> dict:
             b.seg(step)
             b.when(third, lambda: b.seg(lambda: hits.add_(1.0)))
 
-        b.repeat(go, body)
-        b.seg(lambda: prog.out.copy_(torch.cat([n, hits])))
+        b.repeat(gate, body)
+        b.seg(lambda: prog.out.copy_(torch.cat([reg, hits, it.float()])))
 
-    prog = device_loop.Program(build, 2, dev, name="loop_check")
-    before = device_loop.LAUNCHES["pred"]
-    got = prog.run().fetch()
-    preds = device_loop.LAUNCHES["pred"] - before
-    prog.build_fn(device_loop.Eager())
-    plain = prog.out.cpu().numpy()
-    expect_preds = (n_it + 1) + n_it  # the WHILE's n_it + 1 tests, the IF's n_it
-    err = float(np.abs(got - plain).max())
-    ms = _time_ms(lambda: prog.run().fetch(), reps=5) / n_it
-    plain_ms = _time_ms(lambda: prog.build_fn(device_loop.Eager()), reps=2) / n_it
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            prog.run().fetch()
-        torch.cuda.synchronize()
-    k = [e for e in prof.key_averages() if "loop_pred" in e.key and e.count]
-    kernel_ms = (sum(e.self_device_time_total for e in k) / sum(e.count for e in k) / 1e3
-                 if k else None)
+    prog = device_loop.Program(build, L + 2, dev, name=f"gate_check_{L}")
+    return prog
+
+
+def check_loop_pred() -> dict:
+    """The loop predicate (csrc/loop.cu) against its plain version, the host
+    gate (device_loop.Gate.holds), at gate lengths GATE_LANES with the live
+    lanes first, in the middle, last, all and none (_gate_program): run as
+    one graph on the card and eagerly with its gates read on the host, the
+    same values and the same predicate executions (max_abs_err 0). The
+    predicate kernel's own device time at each length (torch.profiler, mean
+    over its executions in 20 runs of the "all" program; None if the
+    profiler records no kernel inside the graph). Then the loop's time per
+    iteration over tools/loop_latency.py's bodies (the "check" body's in the
+    graph and with the host gate are the JSON's ms and plain_ms), and three
+    launches of one program queued behind a sleeping kernel, in flight
+    together: each must fetch its own number."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cmax_slam_tpu_torch.ops import device_loop
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import loop_latency
+
+    dev = torch.device("cuda")
+    err, cases, kernel_us = 0.0, {}, {}
+    ok = True
+    for L in GATE_LANES:
+        for pattern in GATE_PATTERNS:
+            prog = _gate_program(L, pattern)
+            before = device_loop.LAUNCHES["pred"]
+            got = prog.run().fetch()
+            preds = device_loop.LAUNCHES["pred"] - before
+            prog.build_fn(device_loop.Eager())
+            plain = prog.out.cpu().numpy()
+            iters = int(plain[-1])
+            expect = 1 + 2 * iters  # the WHILE's iters + 1 tests, the IF's iters
+            e = float(np.abs(got - plain).max())
+            err = max(err, e)
+            ok = ok and e == 0 and preds == expect
+            cases[f"{L} {pattern}"] = {"iterations": iters, "executions": preds,
+                                       "expected": expect, "max_abs_err": e}
+            if pattern == "all":
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(20):
+                        prog.run().fetch()
+                    torch.cuda.synchronize()
+                k = [ev for ev in prof.key_averages() if "loop_pred" in ev.key and ev.count]
+                kernel_us[L] = (sum(ev.self_device_time_total for ev in k)
+                                / sum(ev.count for ev in k) if k else None)
+    bodies = loop_latency.bodies(device_loop)
+    ms = bodies["check"]["us_per_iteration"] / 1e3
+    plain_ms = bodies["check"]["host_gate_us_per_iteration"] / 1e3
 
     reg = torch.zeros(1, device=dev)
 
@@ -2221,14 +2389,57 @@ def check_loop_pred() -> dict:
     queued = not any(r.fetched for r in flight) and not flight[0]._event.query()
     own = [float(v[0]) for v in device_loop.fetch_all(flight[::-1])][::-1]
     in_flight_ok = queued and own[1] == own[0] + 1 and own[2] == own[1] + 1
-    _log(f"loop predicate: {n_it} iterations, graph {got.tolist()} host gate {plain.tolist()}, "
-         f"predicate executions {preds} (expected {expect_preds}); per iteration graph "
-         f"{ms * 1e3:.3f} us, host gate {plain_ms * 1e3:.3f} us; predicate kernel device time "
-         f"{'not recorded' if kernel_ms is None else f'{kernel_ms * 1e3:.3f} us'}; three "
-         f"launches in flight (queued {queued}) fetched {own}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "kernel_device_ms": kernel_ms,
-            "bound_ms": 8 / HBM_BYTES_PER_S * 1e3, "ok": err == 0 and preds == expect_preds,
-            "in_flight_ok": in_flight_ok, "executions": preds}
+    _log("loop predicate against the host gate, per gate length and live lanes "
+         "(iterations, executions / expected, max_abs_err): " + "; ".join(
+             f"{k} {c['iterations']}, {c['executions']}/{c['expected']}, {c['max_abs_err']}"
+             for k, c in cases.items()))
+    _log("loop predicate kernel device time by gate length: " + ", ".join(
+        f"{L} lanes {'not recorded' if us is None else f'{us:.3f} us'}"
+        for L, us in kernel_us.items())
+         + f"; the check body: graph {ms * 1e3:.3f} us per iteration, host gate "
+         f"{plain_ms * 1e3:.3f} us; three launches in flight (queued {queued}) fetched {own}")
+    _log("loop iteration by body (tools/loop_latency.py, this tree): " + json.dumps(bodies))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "kernel_device_us_by_lanes": kernel_us, "bodies": bodies,
+            "bound_ms": (1 + 4) / HBM_BYTES_PER_S * 1e3, "ok": ok,  # the check body: 1 lane
+            "in_flight_ok": in_flight_ok, "cases": cases,
+            "executions": sum(c["executions"] for c in cases.values())}
+
+
+def loop_in_turns(parent: str, card: str) -> dict:
+    """tools/loop_latency.py on the parent's tree and on this one, in turns
+    (parent, this, this, parent), each turn a process of its own: the time
+    per loop iteration of each body and its nodes."""
+    out = {"parent": [], "change": []}
+    tool = os.path.join(REPO, "tools", "loop_latency.py")
+    for name in ("parent", "change", "change", "parent"):
+        tree = parent if name == "parent" else REPO
+        proc = subprocess.run([sys.executable, tool, "--tree", tree], cwd=tree,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"loop_latency.py on {tree} failed:\n{proc.stderr[-3000:]}")
+        out[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        _log(f"turns: {name} loop bodies {out[name][-1]}")
+    _log(f"loop bodies in turns on {card}: us per iteration " + json.dumps(
+        {t: [{b: round(r[b]["us_per_iteration"], 3) for b in r if b != "folded_gates"}
+             for r in runs] for t, runs in out.items()}))
+    return out
+
+
+def cg_iteration_nodes(slam) -> dict:
+    """Nodes, kernel nodes and gates of one CG iteration (tools/
+    loop_latency.iteration_nodes) of the front-end's widest packet program
+    and of a crop-window program of this system."""
+    from cmax_slam_tpu_torch.ops import device_loop
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import loop_latency
+
+    fe = slam.frontend._entry.programs
+    packet = fe[max(fe)].program
+    crop = next(s.program for k, s in slam.backend._entry.programs.items() if k[3] is not None)
+    return {"packet": loop_latency.iteration_nodes(device_loop, packet),
+            "crop_window": loop_latency.iteration_nodes(device_loop, crop)}
 
 
 @contextlib.contextmanager
@@ -2430,6 +2641,14 @@ def split_objectives(slam, ev, reps: int = 20, only=None) -> dict:
     return out
 
 
+def derivative_window(slam) -> tuple:
+    """(window, panorama, order, blur sigma) of the derivative-images
+    phase: the window loaded last into phase 4's widest window program."""
+    be = slam.backend
+    solver = max(be._entry.programs.values(), key=lambda p: p.win.weights.shape[0])
+    return solver.win, be.pano, be.order, be.cfg.warp.blur_sigma
+
+
 def run_derivative_images(slam) -> tuple:
     """The derivative-images phase on one phase-4 window: the window loaded
     last into phase 4's widest window program (its events, knots, map term
@@ -2443,10 +2662,7 @@ def run_derivative_images(slam) -> tuple:
     import torch
     from cmax_slam_tpu_torch.ops import scatter, warp_pano
 
-    be = slam.backend
-    solver = max(be._entry.programs.values(), key=lambda p: p.win.weights.shape[0])
-    win, pano, order = solver.win, be.pano, be.order
-    sigma = be.cfg.warp.blur_sigma
+    win, pano, order, sigma = derivative_window(slam)
     K = win.knots.shape[0]
     N = win.weights.shape[0]
 
@@ -2456,7 +2672,19 @@ def run_derivative_images(slam) -> tuple:
     dev = win.knots.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     _reset_launches()
-    got = derive()
+    from cmax_slam_tpu_torch.ops import cuda_iwe
+
+    seen, vote_jvp = [], cuda_iwe.vote_jvp
+
+    def spy(*args):  # K3's operands at this window, for its times on real data
+        seen.append(args)
+        return vote_jvp(*args)
+
+    cuda_iwe.vote_jvp = spy
+    try:
+        got = derive()
+    finally:
+        cuda_iwe.vote_jvp = vote_jvp
     zeros = torch.zeros((K, 3), device=dev)
     free = [k for k in range(K) if float(win.free_mask[k]) > 0]
     dirs = [(free[0], 2), (free[-1], 0)]
@@ -2486,6 +2714,11 @@ def run_derivative_images(slam) -> tuple:
            "scale": float(ref.abs().max())}
     _log(f"derivative images of a phase-4 window ({N} events, {K} knots, "
          f"{pano.height}x{pano.width}): {json.dumps(out)}; launches {launches}")
+    if dev.type == "cuda":  # K3 (and the parent's) on this window's coordinates and tangents
+        px, py, wt, tpx, tpy, H, W, _ = seen[0]
+        dropped = ~(scatter.inbounds_mask(px[0], py[0], H, W) & (wt[0] != 0))
+        out["real_window"] = jvp_case("real", px, py, wt, tpx, tpy, H, W, dropped,
+                                      JVP_FLOOR_MS)
     checks = {
         "derivative images vs the plain tangent vote": bool(
             got.shape == (K, 3, pano.height, pano.width) and torch.isfinite(got).all()
@@ -2546,15 +2779,27 @@ def _require(phase: str, checks: dict) -> None:
 _WALL_PROBE = """
 import json, sys, time
 sys.path.insert(0, ".")
-import chip_smoke
-walls, captures = [], []
+sys.path.insert(0, {tools!r})
+import chip_smoke, loop_latency
+from cmax_slam_tpu_torch.ops import device_loop
+loop_latency.keep_items(device_loop)
+walls, captures, nodes = [], [], None
 for _ in range(2):  # the first run's system is released before the second
     run = chip_smoke.run_system(label="turn")
     walls.append(run[3])
     captures.append(run[5]["captures"])
+    if nodes is None:  # one CG iteration of the packet and crop-window programs
+        slam = run[4]
+        fe = slam.frontend._entry.programs
+        crop = next(s.program for k, s in slam.backend._entry.programs.items()
+                    if k[3] is not None)
+        nodes = {{"packet": loop_latency.iteration_nodes(device_loop, fe[max(fe)].program),
+                  "crop_window": loop_latency.iteration_nodes(device_loop, crop)}}
+        del slam, fe, crop
     del run
 print("WALLS " + json.dumps(walls))
 print("CAPTURES " + json.dumps(captures))
+print("NODES " + json.dumps(nodes))
 """
 
 
@@ -2567,27 +2812,47 @@ def _pool_snapshot() -> tuple:
             {id(e): e.leases for e in entries})
 
 
-def walls_in_turns(parent: str, card: str) -> dict:
+def walls_in_turns(parent: str, card: str, fewer_per_gate: float | None = None) -> dict:
     """Phase 4's wall on this tree and on ``parent`` (an unpacked checkout
     of another commit), in turns: parent, this, this, parent, each turn a
     process of its own that runs phase 4 twice (the first run pays the
     captures and the library set-up, the second is warm: a tree with the
     program pool captures nothing in it). Returns {tree: [[first, warm],
-    ...]} and prints each run's captures."""
+    ...]}, prints each run's captures and the nodes of one CG iteration of
+    each tree's packet and crop-window programs, and how many fewer per
+    gate this tree's take; with ``fewer_per_gate`` it fails unless both
+    programs take at least that many fewer per gate."""
     out = {"parent": [], "change": []}
+    nodes = {}
+    probe = _WALL_PROBE.format(tools=os.path.join(REPO, "tools"))
     for name in ("parent", "change", "change", "parent"):
         cwd = parent if name == "parent" else REPO
-        proc = subprocess.run([sys.executable, "-c", _WALL_PROBE], cwd=cwd,
+        proc = subprocess.run([sys.executable, "-c", probe], cwd=cwd,
                               capture_output=True, text=True, timeout=900)
         lines = {ln.split(" ", 1)[0]: ln.split(" ", 1)[1] for ln in proc.stdout.splitlines()
-                 if ln.startswith(("WALLS ", "CAPTURES "))}
+                 if ln.startswith(("WALLS ", "CAPTURES ", "NODES "))}
         if proc.returncode != 0 or "WALLS" not in lines:
             raise RuntimeError(f"phase 4 in {cwd} failed:\n{proc.stderr[-3000:]}")
         out[name].append(json.loads(lines["WALLS"]))
+        nodes[name] = json.loads(lines["NODES"])
         _log(f"turns: {name} phase 4 walls (first, warm) {out[name][-1]} s, captures "
              f"{lines.get('CAPTURES')}")
     _log(f"phase 4 wall in turns on {card}: parent {out['parent']}, this tree "
          f"{out['change']} (s, first run then warm run per process)")
+    _log(f"nodes per CG iteration (nodes, kernel nodes, gates; each inner loop's body once): "
+         f"parent {json.dumps(nodes['parent'])}, this tree {json.dumps(nodes['change'])}")
+    fewer = {}
+    for prog in ("packet", "crop_window"):
+        p, c = nodes["parent"][prog], nodes["change"][prog]
+        fewer[prog] = ((p["nodes"] - c["nodes"]) / c["gates"]
+                       if c["gates"] and p["gates"] == c["gates"] else None)
+    _log(f"nodes per CG iteration fewer per gate than the parent's: {json.dumps(fewer)}")
+    if fewer_per_gate is not None and not all(
+            f is not None and f >= fewer_per_gate for f in fewer.values()):
+        raise AssertionError(f"nodes per CG iteration not {fewer_per_gate} fewer per gate than "
+                             f"the parent's: {json.dumps(fewer)}")
+    out["nodes"] = nodes
+    out["fewer_nodes_per_gate"] = fewer
     return out
 
 
@@ -2614,11 +2879,20 @@ def main() -> int:
     global PARENT
     parent = (os.path.abspath(sys.argv[sys.argv.index("--parent") + 1])
               if "--parent" in sys.argv else None)
+    fewer_per_gate = (float(sys.argv[sys.argv.index("--fewer-nodes-per-gate") + 1])
+                      if "--fewer-nodes-per-gate" in sys.argv else None)
     t0 = time.perf_counter()
     jobs = [cuda_iwe.build_job(), device_loop.build_job(), cuda_pano_vote.build_job()]
-    if parent is not None:  # the parent's K4/K5, for phase 3 in turns
-        PARENT = ParentPanoVote(parent)
-        jobs.append(PARENT.build_job())
+    global PARENT_JVP, JVP_FLOOR_MS
+    if parent is not None:  # the parent's K3 and K4/K5, for phase 3 in turns
+        PARENT_JVP = ParentJvp(parent)
+        jobs.append(PARENT_JVP.build_job())
+        pano = ParentPanoVote(parent)
+        if pano.src.read_bytes() != cuda_pano_vote.SOURCE.read_bytes():
+            PARENT = pano
+            jobs.append(PARENT.build_job())
+        else:
+            _log("the parent's csrc/pano_vote.cu is this tree's: its K4/K5 are not timed apart")
     nvcc.compile_all(jobs)  # one nvcc each, all at once
     cuda_iwe.build()
     device_loop.build()
@@ -2626,7 +2900,8 @@ def main() -> int:
     _log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(j[2].name for j in jobs)})")
     rng = np.random.default_rng(0)
     kernels = check_kernels(rng)
-    jvp = check_jvp(rng, kernels["bwd"]["floor_ms"])
+    JVP_FLOOR_MS = kernels["bwd"]["floor_ms"]
+    jvp = check_jvp(rng, JVP_FLOOR_MS)
     pano = check_pano_vote(rng, kernels["bwd"]["floor_ms"])
     pred = check_loop_pred()
     _require("loop predicate", {"graph and host gate agree": pred["ok"],
@@ -2649,6 +2924,9 @@ def main() -> int:
     checks["K1 votes on a crop once per crop window"] = (
         fwd_buckets.get("crop", {}).get("launches", 0) <= crop_windows)
     _require("system", checks)
+    cg_nodes = cg_iteration_nodes(slam)
+    _log("system: nodes per CG iteration (nodes, kernel nodes, gates; each inner loop's body "
+         "once) " + json.dumps(cg_nodes))
     ev = make_stream(2.0)[0]
     objectives = check_captured_objectives(slam, ev)
     _require("captured objectives", {k: v for k, v in objectives.items() if k != "_"})
@@ -2704,14 +2982,17 @@ def main() -> int:
     batched_launches = phase("batched", run_batched, seq_log=seq_log)[0]
     shard_launches = phase("window_shard", run_window_shard)[0]
     replay_launches = phase("replay", run_replay)[0]
-    if parent is not None:  # phase 4's wall against another commit, in turns
-        walls_in_turns(parent, card)
+    loop_turns = walls = None
+    if parent is not None:  # the loop and phase 4's wall against another commit, in turns
+        loop_turns = loop_in_turns(parent, card)
+        walls = walls_in_turns(parent, card, fewer_per_gate)
 
     _log("device programs per path: " + json.dumps(graphs))
     _log("captures per later phase: " + json.dumps(captures))
     _log(f"program pool at the end: {json.dumps(program_pool.stats())}; peak device memory "
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     src = "cmax_slam_tpu_torch/csrc/iwe.cu"
+    real = deriv.pop("real_window")  # K3 on the derivative images' own operands heads its row
     replaces = {"fwd": "cmax_slam_tpu/ops/pallas_iwe.py:276 (_fwd_impl, pallas_call at :289)",
                 "bwd": "cmax_slam_tpu/ops/pallas_iwe.py:307 (_vjp_bwd, pallas_call at :350; "
                        "kernel bodies _bwd_kernel_lanes :200 and _bwd_kernel :149)"}
@@ -2819,11 +3100,13 @@ def main() -> int:
                     "through :139 bilinear_accumulate_two) inside jax.jacfwd "
                     "(cmax_slam_tpu/ops/warp_pano.py:236, derivative_images)",
         "launches": deriv_launches["jvp"], "launches_by_path": by_path("jvp"),
-        "max_abs_err": jvp["max_abs_err"], "ms": jvp["ms"],
-        "device_ms": jvp["device_ms"], "plain_ms": jvp["plain_ms"], "bound_ms": jvp["bound_ms"],
-        "bound_by": jvp["bound_by"], "library_ms": None, "floor_ms": jvp["floor_ms"],
-        "shape": jvp["shape"], "by_shape": jvp["by_shape"],
-        "derivative_images": deriv})
+        "max_abs_err": max(jvp["max_abs_err"], real["max_abs_err"]),
+        "ms": real["ms"], "device_ms": real["device_ms"], "plain_ms": real["plain_ms"],
+        "bound_ms": real["bound_ms"], "bound_by": real["bound_by"], "library_ms": None,
+        "floor_ms": jvp["floor_ms"], "design": real["design"],
+        "shape": f"real: a phase-4 window's derivative images, {deriv['knots'] * 3}x"
+                 f"{deriv['events']}@{deriv['shape'][2]}x{deriv['shape'][3]}",
+        "by_shape": jvp["by_shape"] | {"real": real}, "derivative_images": deriv})
     rows.append({
         "name": "loop_pred", "route": "cuda", "source": "cmax_slam_tpu_torch/csrc/loop.cu",
         "replaces": "cmax_slam_tpu/ops/optim.py:573 (lax.while_loop's cond; the lax.cond of "
@@ -2831,9 +3114,12 @@ def main() -> int:
         "launches": graphs["system"]["pred"],
         "launches_by_path": {p: g["pred"] for p, g in graphs.items()},
         "max_abs_err": pred["max_abs_err"], "ms": pred["ms"], "plain_ms": pred["plain_ms"],
-        "kernel_device_ms": pred["kernel_device_ms"],
+        "kernel_device_us_by_lanes": pred["kernel_device_us_by_lanes"],
         "bound_ms": pred["bound_ms"], "bound_by": "bytes", "library_ms": None,
-        "executions_checked": pred["executions"],
+        "executions_checked": pred["executions"], "gate_cases": pred["cases"],
+        "bodies": pred["bodies"], "bodies_in_turns": loop_turns,
+        "nodes_per_cg_iteration": cg_nodes,
+        "nodes_per_cg_iteration_in_turns": None if walls is None else walls["nodes"],
         "graph_runs_by_path": {p: g["runs"] for p, g in graphs.items()}})
     print(json.dumps({"kernels": rows}))
     print(card)

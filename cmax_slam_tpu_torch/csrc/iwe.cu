@@ -69,11 +69,23 @@
 // images: each kept event adds the floor-parametrized derivative of its four
 // taps, w * (-tpx (1-dy) - tpy (1-dx)), w * (tpx (1-dy) - tpy dx),
 // w * (-tpx dy + tpy (1-dx)), w * (tpx dy + tpy dx), the derivatives K2
-// differentiates. It is K1's G with other tap weights: one thread per
-// (tangent image, event), four global atomics into a zeroed output. What
-// bounds it is atomic throughput to L2 (four scattered adds per event and
-// tangent), and for one window's derivative images (15-21 tangents of about
-// 85 000 events) the launch and the zero fill of the T images.
+// differentiates, into a zeroed output. What bounds it is bytes (the events,
+// 2T tangent rows and T images) but what sets its time is global float
+// atomics: 4T per event, and a window's events pile up on the pixels of its
+// landmarks, where atomics on one address serialize. A thread takes a few
+// events (not an event and a tangent), reads each and computes its floor,
+// offsets and keep test once, then loops over the tangents. A block first
+// looks whether any of its warps has lanes on one
+// floor pixel; where so, it sorts its events by floor pixel, so that each
+// warp sums runs of equal pixels (a segmented sum by shuffles) and adds each
+// run once: on a window's piled events that cuts the atomics about fivefold
+// (a block of 1024 events of a phase-4 window holds about 200 pixels). The
+// tangent images are cut into chunks of a few, a block row each, so that
+// the grid fills the card. Summing only a warp's lanes on one pixel
+// (__match_any_sync, no sort), a thread per event adding each tap at once,
+// and a block's sums in a shared-memory table (shared float atomics are
+// compare-and-swap loops under contention on sm_90) all lost to the sort on
+// a phase-4 window and were removed (PERF.md).
 
 // The kernels take B images of H x W and each of px, py and w (K3: and the
 // tangents) as a compact (B / g, N) array, flat image b reading row b / g
@@ -87,10 +99,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cub/block/block_radix_sort.cuh>
+
 namespace {
 
 #ifndef IWE_BWD_G_THREADS
 #define IWE_BWD_G_THREADS 128  // cuda_iwe.G_BWD_THREADS passes it
+#endif
+#ifndef IWE_JVP_ITEMS
+#define IWE_JVP_ITEMS 4  // cuda_iwe.JVP_ITEMS passes it
+#endif
+#ifndef IWE_JVP_TANGENTS
+#define IWE_JVP_TANGENTS 4  // cuda_iwe.JVP_TANGENTS passes it
 #endif
 
 constexpr int kThreadsG = 256;
@@ -98,6 +118,9 @@ constexpr int kThreadsP = 1024;  // P: beat 512 at every shape timed on an H100 
 constexpr int kUnroll = 4;       // events in flight per thread in the band kernel
 constexpr int kThreadsB = IWE_BWD_G_THREADS;
 constexpr int kThreadsS = 512;
+constexpr int kThreadsJ = 256;  // K3: threads per block
+constexpr int kItemsJ = IWE_JVP_ITEMS;        // K3: events a thread
+constexpr int kTangentsJ = IWE_JVP_TANGENTS;  // K3: tangent images per chunk
 constexpr int kBarrierBytes = 16;       // S: the mbarrier ahead of the staged image
 constexpr uint32_t kBulkBytes = 32768;  // S: bytes per bulk copy instruction
 
@@ -394,33 +417,158 @@ __global__ void __launch_bounds__(kThreadsS) vote_bwd_staged_kernel(Events ev,
   }
 }
 
-// K3's coordinate tangents, compact like the events: image b reads row
-// b / g* of each.
+// K3's coordinate tangents, compact like the events: tangent image b reads
+// row b / g* of each.
 struct Tangents {
   const float* tpx;
   const float* tpy;
   int64_t gx, gy;
 };
 
-__global__ void vote_jvp_kernel(Events ev, Tangents tg, float* __restrict__ out, int64_t total,
-                                int H, int W) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int64_t b = i / ev.n, e = i - b * ev.n;
-  const float x = ev.px[(b / ev.gx) * ev.n + e], y = ev.py[(b / ev.gy) * ev.n + e],
-              wt = ev.w[(b / ev.gw) * ev.n + e];
+// K3's launch: tangent images [group * span + j * tpt, ...) of a chunk.
+// Every image of a span of `span` images (the greatest common divisor of
+// the event operands' row groups) reads one row of px, py and w; a chunk
+// takes at most `tpt` (kTangentsJ) of them.
+struct JvpPlan {
+  int64_t b;      // tangent images
+  int span, tpt;  // images sharing an event row; images per chunk
+  int H, W;
+};
+
+__device__ __forceinline__ void jvp_chunk(const JvpPlan& pl, int64_t* b0, int64_t* b1) {
+  const int per = (pl.span + pl.tpt - 1) / pl.tpt;  // chunks per span
+  const int64_t group = blockIdx.y / per;
+  const int j = blockIdx.y - (int)(group * per);
+  *b0 = group * pl.span + (int64_t)j * pl.tpt;
+  *b1 = min(*b0 + pl.tpt, (group + 1) * pl.span);
+}
+
+// One event of a chunk: loaded once, its floor, offsets and keep test
+// computed once for all the chunk's tangent images. key is the floor
+// pixel's index in an image, -1 for a dropped event.
+struct JvpEvent {
+  float dx, dy, w;
+  int key;
+};
+
+__device__ __forceinline__ JvpEvent jvp_event(const Events& ev, int64_t e, int64_t b0, int H,
+                                              int W) {
+  JvpEvent je{0.0f, 0.0f, 0.0f, -1};
+  if (e >= ev.n) return je;
+  const float x = ev.px[(b0 / ev.gx) * ev.n + e], y = ev.py[(b0 / ev.gy) * ev.n + e],
+              wt = ev.w[(b0 / ev.gw) * ev.n + e];
   const float fx = floorf(x), fy = floorf(y);
-  if (!in_bounds(fx, fy, wt, H, W)) return;  // a dropped event's tangents are never read
-  const float dx = x - fx, dy = y - fy;
-  const float tx = tg.tpx[(b / tg.gx) * ev.n + e], ty = tg.tpy[(b / tg.gy) * ev.n + e];
-  float* img = out + b * (int64_t)H * W + (int64_t)fy * W + (int64_t)fx;
-  atomicAdd(img, wt * (-tx * (1.0f - dy) - ty * (1.0f - dx)));
-  atomicAdd(img + 1, wt * (tx * (1.0f - dy) - ty * dx));
-  atomicAdd(img + W, wt * (-tx * dy + ty * (1.0f - dx)));
-  atomicAdd(img + W + 1, wt * (tx * dy + ty * dx));
+  if (!in_bounds(fx, fy, wt, H, W)) return je;  // a dropped event's tangents are never read
+  je.dx = x - fx;
+  je.dy = y - fy;
+  je.w = wt;
+  je.key = (int)fy * W + (int)fx;
+  return je;
+}
+
+// The event's four tap derivatives along tangent (tx, ty), in the plain
+// version's operation order.
+__device__ __forceinline__ void jvp_taps(const JvpEvent& je, float tx, float ty, float v[4]) {
+  v[0] = je.w * (-tx * (1.0f - je.dy) - ty * (1.0f - je.dx));
+  v[1] = je.w * (tx * (1.0f - je.dy) - ty * je.dx);
+  v[2] = je.w * (-tx * je.dy + ty * (1.0f - je.dx));
+  v[3] = je.w * (tx * je.dy + ty * je.dx);
+}
+
+__device__ __forceinline__ void jvp_add(float* img, int W, const float v[4]) {
+  atomicAdd(img, v[0]);
+  atomicAdd(img + 1, v[1]);
+  atomicAdd(img + W, v[2]);
+  atomicAdd(img + W + 1, v[3]);
+}
+
+// K3: a block of kThreadsJ * kItemsJ consecutive events, each thread
+// loading kItemsJ of them (coalesced) and testing each once, for the
+// tangent images of one chunk. Each warp first looks for lanes on one
+// floor pixel (__match_any_sync); if no warp of the block has any, every
+// thread adds its events' taps tangent by tangent straight away. Otherwise the block
+// sorts its events by floor pixel (cub::BlockRadixSort on the pixel index,
+// dropped events last), so that each pixel's events of the block lie on
+// consecutive lanes; then, item by item and tangent by tangent, each warp
+// sums each run of equal pixels by a segmented suffix sum over shuffles
+// (five steps) and the run's first lane adds its four sums with one atomic
+// per tap. The events' offsets and weights wait in shared memory; their
+// tangents are gathered from the block's stretch of tpx and tpy.
+__global__ void __launch_bounds__(kThreadsJ) vote_jvp_kernel(Events ev, Tangents tg,
+                                                            float* __restrict__ out, JvpPlan pl,
+                                                            int key_bits) {
+  using Sort = cub::BlockRadixSort<int, kThreadsJ, kItemsJ, int>;
+  __shared__ typename Sort::TempStorage tmp;
+  __shared__ float3 sev[kThreadsJ * kItemsJ];
+  int64_t b0, b1;
+  jvp_chunk(pl, &b0, &b1);
+  const int drop = pl.H * pl.W;  // above every pixel: sorted last
+  const int64_t e0 = (int64_t)blockIdx.x * (kThreadsJ * kItemsJ);
+  const int64_t plane = (int64_t)pl.H * pl.W;
+  const int lane = threadIdx.x & 31;
+  int keys[kItemsJ], local[kItemsJ];
+  bool shared = false;
+#pragma unroll
+  for (int k = 0; k < kItemsJ; ++k) {
+    local[k] = k * kThreadsJ + threadIdx.x;
+    const JvpEvent je = jvp_event(ev, e0 + local[k], b0, pl.H, pl.W);
+    keys[k] = je.key >= 0 ? je.key : drop;
+    sev[local[k]] = make_float3(je.dx, je.dy, je.w);
+    const unsigned int peers = __match_any_sync(0xffffffffu, keys[k]);  // every lane
+    shared |= je.key >= 0 && __popc(peers) > 1;
+  }
+  if (!__syncthreads_or(shared)) {  // no pixel shared within a warp: add at once
+#pragma unroll
+    for (int k = 0; k < kItemsJ; ++k) {
+      if (keys[k] == drop) continue;
+      const float3 o = sev[local[k]];
+      const JvpEvent je{o.x, o.y, o.z, keys[k]};
+      const int64_t e = e0 + local[k];
+      for (int64_t i = b0; i < b1; ++i) {
+        float v[4];
+        jvp_taps(je, tg.tpx[(i / tg.gx) * ev.n + e], tg.tpy[(i / tg.gy) * ev.n + e], v);
+        jvp_add(out + i * plane + je.key, pl.W, v);
+      }
+    }
+    return;
+  }
+  Sort(tmp).SortBlockedToStriped(keys, local, 0, key_bits);
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kItemsJ; ++k) {  // sorted item k * kThreadsJ + threadIdx.x
+    const int key = keys[k];
+    const bool keep = key != drop;
+    if (!__any_sync(0xffffffffu, keep)) continue;  // warp-uniform
+    const unsigned int peers = __match_any_sync(0xffffffffu, key);  // a run of lanes
+    const int last = 31 - __clz(peers);
+    const bool head = keep && __ffs(peers) - 1 == lane;
+    const bool runs = __any_sync(0xffffffffu, keep && __popc(peers) > 1);
+    const float3 o = sev[local[k]];
+    const JvpEvent je{o.x, o.y, o.z, key};
+    const int64_t e = e0 + local[k];
+    for (int64_t i = b0; i < b1; ++i) {
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (keep) {
+        jvp_taps(je, tg.tpx[(i / tg.gx) * ev.n + e], tg.tpy[(i / tg.gy) * ev.n + e], v);
+      }
+      if (runs) {  // warp-uniform: some run is longer than one lane
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float a = __shfl_down_sync(0xffffffffu, v[q], d);
+            if (lane + d <= last) v[q] += a;
+          }
+        }
+      }
+      if (head) jvp_add(out + i * plane + key, pl.W, v);
+    }
+  }
 }
 
 __global__ void noop_kernel() {}
+
+int64_t gcd64(int64_t a, int64_t b) { return b ? gcd64(b, a % b) : a; }
 
 unsigned int blocks_for(int64_t total) {
   return (unsigned int)((total + kThreadsG - 1) / kThreadsG);
@@ -509,16 +657,27 @@ int iwe_vote_bwd(int variant, const float* px, const float* py, const float* w, 
 }
 
 // K3: b tangent images (out zeroed by the caller) from compact (b / g*, n)
-// events and coordinate tangents. Returns cudaGetLastError() after the
-// launch.
+// events and coordinate tangents, in blocks of kThreadsJ * kItemsJ events.
+// Returns cudaGetLastError() after the launch.
 int iwe_vote_jvp(const float* px, const float* py, const float* w, int64_t gx, int64_t gy,
                  int64_t gw, const float* tpx, const float* tpy, int64_t gtx, int64_t gty,
                  float* out, int64_t b, int64_t n, int H, int W, void* stream) {
   const Events ev{px, py, w, gx, gy, gw, n};
   const Tangents tg{tpx, tpy, gtx, gty};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (gx < 1 || gy < 1 || gw < 1) return (int)cudaErrorInvalidValue;
+  const int64_t span = gcd64(gcd64(gx, gy), gw);  // images that read one row of each operand
+  const int64_t chunks = b / span * ((span + kTangentsJ - 1) / kTangentsJ);
+  if (b % span || chunks >= (1 << 16) || (int64_t)H * W >= (int64_t)1 << 30) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const JvpPlan pl{b, (int)span, (int)(span < kTangentsJ ? span : kTangentsJ), H, W};
   if (b * n > 0) {
-    vote_jvp_kernel<<<blocks_for(b * n), kThreadsG, 0, (cudaStream_t)stream>>>(ev, tg, out, b * n,
-                                                                              H, W);
+    const dim3 grid((unsigned int)((n + kThreadsJ * kItemsJ - 1) / (kThreadsJ * kItemsJ)),
+                    (unsigned int)chunks);
+    int key_bits = 1;
+    while (((int64_t)1 << key_bits) <= (int64_t)H * W) ++key_bits;  // the drop key H * W too
+    vote_jvp_kernel<<<grid, kThreadsJ, 0, s>>>(ev, tg, out, pl, key_bits);
   }
   return (int)cudaGetLastError();
 }

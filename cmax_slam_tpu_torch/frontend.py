@@ -478,7 +478,8 @@ class _PacketSolver:
         self.packet = warp_local.EventPacket(buf(S, 3), buf(S), buf(S))
         self.carry = buf(1, 3)
         self.rows = buf(capacity, 5)
-        self.go, self.live = device_loop.flag(dev), device_loop.flag(dev)
+        # gates: another lane to solve (li < count_in), this lane live (flag > 0)
+        self.go, self.live = device_loop.gate(dev), device_loop.gate(dev)
         lanes = torch.arange(S, device=dev)
 
         def objective(sigma):
@@ -504,7 +505,7 @@ class _PacketSolver:
             self.li.zero_()
             self.carry.copy_(self.omega_in)
             self.rows.zero_()
-            device_loop.set_flag(self.go, self.li < self.count_in)
+            torch.lt(self.li, self.count_in, out=self.go)
 
         def load():
             lane = self.lanes_in.index_select(0, self.li)[0]
@@ -521,7 +522,7 @@ class _PacketSolver:
             for b, v in zip(self.packet, packet):
                 b.copy_(v)
             self.flag.copy_(lane[3:4])
-            device_loop.set_flag(self.live, self.flag > 0)
+            torch.gt(self.flag, 0, out=self.live)
 
         def store():
             cg, live = self.fine, self.flag > 0
@@ -531,7 +532,7 @@ class _PacketSolver:
             keep = torch.where(self.flag < 0, self.carry, torch.zeros_like(self.carry))
             self.carry.copy_(torch.where(live, cg.s.x, keep))
             self.li.add_(1)
-            device_loop.set_flag(self.go, self.li < self.count_in)
+            torch.lt(self.li, self.count_in, out=self.go)
 
         def finish():
             self.out.copy_(torch.cat([self.rows.reshape(-1), self.carry[0]]))

@@ -41,10 +41,13 @@ K3 ``vote_jvp`` is the vote's forward-mode derivative, which the JAX
 package gets from forward mode through its XLA scatter vote
 (ops/scatter.py's bilinear_accumulate_scatter inside warp_pano's
 derivative_images): T tangent images from coordinate tangents, the
-floor-parametrized derivatives of the four taps that K2 differentiates. One
-variant, K1's G with other tap weights (a thread per event and tangent
-image, global atomics into a zeroed output). ``Vote.jvp`` sends coordinate
-tangents to it and a weight tangent to K1.
+floor-parametrized derivatives of the four taps that K2 differentiates, by
+global atomics into a zeroed output. A thread takes ``JVP_ITEMS`` events,
+tests each once and loops over a chunk of ``JVP_TANGENTS`` tangent images; a
+block whose warps find lanes on one floor pixel sorts its events by pixel
+and adds each warp's run of equal pixels once ("S", sorted: a window's
+events pile on its landmarks).
+``Vote.jvp`` sends coordinate tangents to it and a weight tangent to K1.
 
 The kernels read each operand as a compact (B / g, N) array, flat image b
 reading row b / g, so broadcast weights and coordinates are not copied per
@@ -60,7 +63,7 @@ another.
 ``LAUNCHES`` counts executed kernel launches, so a run can show that its
 votes went through the kernels: ``"fwd"`` is every K1 launch and
 ``"fwd_P"``, ``"fwd_G"`` split it by variant; ``"bwd"``, ``"bwd_S"`` and
-``"bwd_G"`` do the same for K2, ``"jvp"`` and ``"jvp_G"`` for K3. A wrapper
+``"bwd_G"`` do the same for K2, ``"jvp"`` and ``"jvp_S"`` for K3. A wrapper
 counts a launch where it makes it, and nowhere else. A launch made while its
 stream is captured into a CUDA graph (ops/device_loop.py) runs only when the
 graph does, perhaps many times: the wrapper hands it to the recorder that
@@ -85,7 +88,7 @@ import torch
 from . import nvcc
 
 LAUNCHES = {"fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0,
-            "jvp": 0, "jvp_G": 0,
+            "jvp": 0, "jvp_S": 0,
             # K4 and K5 (ops/cuda_pano_vote.py), by spline order
             "pano_fwd": 0, "pano_fwd_o2": 0, "pano_fwd_o4": 0,
             "pano_bwd": 0, "pano_bwd_o2": 0, "pano_bwd_o4": 0}
@@ -108,6 +111,13 @@ S_MIN_IMAGES = 48     # images per launch from which S beats G (G at 32)
 G_BWD_THREADS = 128   # G's block, compiled in (IWE_BWD_G_THREADS): within 4%
                       # of the best of 32-256 at every shape timed
 S_BARRIER_BYTES = 16  # kBarrierBytes in csrc/iwe.cu
+
+# K3 constants, compiled in (IWE_JVP_ITEMS, IWE_JVP_TANGENTS): events a
+# thread (a block sorts 256 times as many) and tangent images per chunk (a
+# block row of the grid each), the fastest of 2-8 events and 2-5 tangents on
+# a phase-4 window's derivative images (tools/tune_vote_jvp.py, PERF.md).
+JVP_ITEMS = 4
+JVP_TANGENTS = 4
 
 VARIANTS = ("G", "P")      # K1; index = the kernel's variant code
 BWD_VARIANTS = ("G", "S")  # K2; likewise
@@ -227,8 +237,10 @@ def sum_rows(d: torch.Tensor, r: int) -> torch.Tensor:
 
 
 def nvcc_flags() -> tuple:
-    """nvcc's flags and the constants compiled in: K2's G block size."""
-    return (*nvcc.NVCC_FLAGS, f"-DIWE_BWD_G_THREADS={G_BWD_THREADS}")
+    """nvcc's flags and the constants compiled in: K2's G block size, K3's
+    events a thread and tangent images a chunk."""
+    return (*nvcc.NVCC_FLAGS, f"-DIWE_BWD_G_THREADS={G_BWD_THREADS}",
+            f"-DIWE_JVP_ITEMS={JVP_ITEMS}", f"-DIWE_JVP_TANGENTS={JVP_TANGENTS}")
 
 
 def library_path() -> Path:
@@ -453,16 +465,15 @@ def launch_jvp(px, py, w, tpx, tpy, out, b: int, height: int, width: int) -> Non
     """One raw K3 launch into ``out`` ((b, height, width), zeroed by the
     caller), on the current stream; not counted and allocating nothing
     (chip_smoke times the kernel with it)."""
-    n = px.shape[1]
-    if -(-b * n // G_THREADS) >= 1 << 31:
-        raise ValueError(f"K3 launch of {b} x {n} events exceeds the grid")
+    if b >= 1 << 31 or height * width >= 1 << 30:
+        raise ValueError(f"K3 launch of {b} tangent images of {height}x{width} exceeds the grid")
     lib = build()
     with torch.cuda.device(px.device):
         stream = torch.cuda.current_stream(px.device).cuda_stream
         err = lib.iwe_vote_jvp(
             px.data_ptr(), py.data_ptr(), w.data_ptr(), b // px.shape[0], b // py.shape[0],
             b // w.shape[0], tpx.data_ptr(), tpy.data_ptr(), b // tpx.shape[0],
-            b // tpy.shape[0], out.data_ptr(), b, n, height, width, stream)
+            b // tpy.shape[0], out.data_ptr(), b, px.shape[1], height, width, stream)
     _check("iwe_vote_jvp launch", err, lib)
 
 
@@ -480,7 +491,7 @@ def vote_jvp(px: torch.Tensor, py: torch.Tensor, w: torch.Tensor, tpx: torch.Ten
     if b * n * height * width == 0:
         return out
     launch_jvp(px, py, w, tpx, tpy, out, b, height, width)
-    _launched("jvp", "G", (b, n, height, width))
+    _launched("jvp", "S", (b, n, height, width))
     return out
 
 

@@ -7,30 +7,42 @@ A program is described once by a ``build(b)`` function over static buffers
 
 - ``b.seg(fn)``: straight-line tensor code; ``fn()`` reads and writes the
   buffers in place and never reads a value on the host;
-- ``b.when(flag, body)``: ``body()`` (more statements) runs only if the int32
-  (1,) tensor ``flag``, written by an earlier segment, is non-zero;
-- ``b.repeat(flag, body, trips=None)``: ``body()`` runs while ``flag`` is
-  non-zero; the body must rewrite ``flag``, and ``trips``, where given, is
+- ``b.when(gate, body)``: ``body()`` (more statements) runs only if the gate
+  holds;
+- ``b.repeat(gate, body, trips=None)``: ``body()`` runs while the gate holds;
+  the body must change what the gate reads, and ``trips``, where given, is
   the most iterations the loop can run.
+
+A gate is a ``Gate(mask, counter=None, limit=None)`` (a bare mask stands for
+``Gate(mask)``): it holds while any lane of ``mask`` is set and, where a
+counter is given, ``counter[0] < limit[0]``. ``mask`` is a static bool (or
+uint8), contiguous, 1-D buffer of L >= 1 lanes (1 for a packet solve, the
+lanes of a stride or of a batched round), written in place by the segments
+before the gate (``torch.lt(a, b, out=mask)``, a CG state's own lane mask);
+``counter`` and ``limit`` are static int32 (1,) buffers (``limit()`` makes
+a constant one). So the common ``active & (k < max_evals)`` costs no kernel
+of its own: the predicate reads the lanes' mask and the counter itself. A
+gate of any other form raises, in every interpreter, before anything runs.
 
 ``Program.run()`` launches it and returns a ``Result``, a handle on that
 launch's ``out``; ``Result.fetch()`` (or ``fetch_all`` for many handles)
 waits for it on the host. On the CPU every run interprets ``build`` with
-``Eager``, whose gates read their flag on the host, as a host loop does, and
-returns a Result that is already complete. On a CUDA device the first run
-captures every segment into a CUDA graph of its own
-(torch.cuda.CUDAGraph(keep_graph=True), after one warm-up run on a side
-stream, all graphs of the program in one private memory pool of its own) and
-csrc/loop.cu joins them into one graph: a WHILE node per ``repeat`` and an IF
-node per ``when``, each behind the loop predicate kernel that reads the flag
-on the device. Every later run is one graph launch, then one copy of ``out``
-and the counters into a pinned host slot of that launch's own, behind a CUDA
-event: the host goes on at once, and several launches of one program may be
-in flight, each fetching its own numbers (the program's buffers hold only
-the last launch's). A step met again (the same bound method: the bracket
-and secant steps, a restarted solve) reuses its capture as another child
-node. A capture or launch that fails raises; nothing falls back to the
-eager form.
+``Eager``, whose gates are read on the host (``Gate.holds``, the plain
+version of the predicate), as a host loop does, and returns a Result that is
+already complete. On a CUDA device the first run captures every segment into
+a CUDA graph of its own (torch.cuda.CUDAGraph(keep_graph=True), after one
+warm-up run on a side stream, all graphs of the program in one private
+memory pool of its own) and csrc/loop.cu joins them into one graph: a WHILE
+node per ``repeat`` and an IF node per ``when``, each behind the loop
+predicate kernel, which reduces the gate's mask and reads its counter on the
+device in one launch. Every later run is one graph launch, then one copy of
+``out`` and the counters into a pinned host slot of that launch's own,
+behind a CUDA event: the host goes on at once, and several launches of one
+program may be in flight, each fetching its own numbers (the program's
+buffers hold only the last launch's). A step met again (the same bound
+method: the bracket and secant steps, a restarted solve) reuses its capture
+as another child node. A capture or launch that fails raises; nothing falls
+back to the eager form.
 
 Counts. The predicate adds one to its node's execution counter each time the
 body runs; the counters travel to the host with ``out`` in the same copy.
@@ -46,7 +58,7 @@ import ctypes
 import gc
 import threading
 import time
-from typing import Callable, List, Sequence
+from typing import Callable, List, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -83,8 +95,9 @@ def build():
             lib.loop_graph_create.argtypes = [pp]
             lib.loop_graph_destroy.argtypes = [p]
             lib.loop_add_child.argtypes = [p, p, p, pp]
-            lib.loop_add_cond.argtypes = [p, p, ctypes.c_int, p, p, pp, pp, ctypes.POINTER(h)]
-            lib.loop_add_pred.argtypes = [p, p, h, p, p, pp]
+            i = ctypes.c_int
+            lib.loop_add_cond.argtypes = [p, p, i, p, i, p, p, p, pp, pp, ctypes.POINTER(h)]
+            lib.loop_add_pred.argtypes = [p, p, h, p, i, p, p, p, pp]
             lib.loop_instantiate.argtypes = [p, pp]
             lib.loop_launch.argtypes = [p, p]
             lib.loop_exec_destroy.argtypes = [p]
@@ -111,19 +124,56 @@ def _check(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: {lib.loop_error_string(err).decode()}")
 
 
-def flag(device) -> torch.Tensor:
-    """A flag buffer: int32 (1,), written by a segment, read by a gate."""
-    return torch.zeros(1, dtype=torch.int32, device=device)
+class Gate(NamedTuple):
+    """A loop's or branch's condition (see the module docstring): any lane
+    of ``mask`` set and, with a counter, ``counter[0] < limit[0]``."""
+
+    mask: torch.Tensor
+    counter: torch.Tensor | None = None
+    limit: torch.Tensor | None = None
+
+    def holds(self) -> bool:
+        """The host gate: the predicate's plain version (reads the buffers)."""
+        if not bool(self.mask.any()):
+            return False
+        return self.counter is None or int(self.counter[0]) < int(self.limit[0])
 
 
-def set_flag(dst: torch.Tensor, mask: torch.Tensor) -> None:
-    """dst <- whether any element of the bool ``mask`` holds (on the device)."""
-    dst.copy_(mask.any().reshape(1))
+def gate(device, lanes: int = 1) -> torch.Tensor:
+    """A gate's mask buffer: bool (lanes,), written in place by a segment."""
+    return torch.zeros(lanes, dtype=torch.bool, device=device)
+
+
+def limit(value: int, device) -> torch.Tensor:
+    """A constant limit for a gate's counter: int32 (1,)."""
+    return torch.full((1,), value, dtype=torch.int32, device=device)
+
+
+def as_gate(g) -> Gate:
+    """``g`` (a Gate or a bare mask) as a Gate the predicate can read;
+    raises for anything else (no conversion: the graph reads the buffers
+    themselves)."""
+    g = g if isinstance(g, Gate) else Gate(g)
+    m = g.mask
+    if not isinstance(m, torch.Tensor) or m.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"a gate's mask must be a bool or uint8 tensor, not "
+                        f"{getattr(m, 'dtype', type(m))}")
+    if m.dim() != 1 or not 1 <= m.numel() < 1 << 31 or not m.is_contiguous():
+        raise ValueError(f"a gate's mask must be 1-D, contiguous and non-empty "
+                         f"(shape {tuple(m.shape)})")
+    if (g.counter is None) != (g.limit is None):
+        raise ValueError("a gate takes a counter and a limit together")
+    for t in (g.counter, g.limit):
+        if t is not None and (t.dtype != torch.int32 or t.shape != (1,)
+                              or t.device != m.device):
+            raise ValueError("a gate's counter and limit are int32 (1,) tensors beside "
+                             "its mask")
+    return g
 
 
 class Eager:
-    """Interprets a program as it goes. With ``gate`` the gates read their
-    flag on the host (the CPU's form); without it nothing is read there:
+    """Interprets a program as it goes. With ``gate`` the gates are read on
+    the host (``Gate.holds``, the CPU's form); without it nothing is read there:
     every ``when`` body runs and every ``repeat`` body runs ``trips`` times
     (once where no bound is given); steps masked per lane then change
     nothing."""
@@ -134,16 +184,18 @@ class Eager:
     def seg(self, fn: Callable) -> None:
         fn()
 
-    def when(self, flag_t: torch.Tensor, body: Callable) -> None:
-        if not self.gate or int(flag_t.item()):
+    def when(self, gate_t, body: Callable) -> None:
+        g = as_gate(gate_t)
+        if not self.gate or g.holds():
             body()
 
-    def repeat(self, flag_t: torch.Tensor, body: Callable, trips: int | None = None) -> None:
+    def repeat(self, gate_t, body: Callable, trips: int | None = None) -> None:
+        g = as_gate(gate_t)
         if not self.gate:
             for _ in range(trips or 1):
                 body()
             return
-        while int(flag_t.item()):
+        while g.holds():
             body()
 
 
@@ -153,7 +205,7 @@ class _Capture:
 
     def __init__(self, prog: "Program"):
         self.prog = prog
-        self.items: List = []   # ("seg", index) | ("cond", is_while, flag, slot, items)
+        self.items: List = []   # ("seg", index) | ("cond", is_while, gate, slot, items)
         self.slot = -1          # counter slot of the innermost conditional (-1: top level)
 
     def seg(self, fn: Callable) -> None:
@@ -164,8 +216,12 @@ class _Capture:
         prog._occurrences.append((idx, self.slot))
         self.items.append(("seg", idx))
 
-    def _cond(self, is_while: int, flag_t: torch.Tensor, body: Callable) -> None:
+    def _cond(self, is_while: int, gate_t, body: Callable) -> None:
         prog = self.prog
+        g = as_gate(gate_t)
+        where = g.mask.device
+        if where.type != prog.device.type or prog.device.index not in (None, where.index):
+            raise ValueError(f"a gate on {where} in a program on {prog.device}")
         slot = len(prog._conds)
         if slot >= MAX_CONDS:
             raise RuntimeError(f"more than {MAX_CONDS} conditional nodes in one program")
@@ -175,13 +231,13 @@ class _Capture:
             body()
         finally:
             inner, self.items, self.slot = self.items, outer, outer_slot
-        self.items.append(("cond", is_while, flag_t, slot, inner))
+        self.items.append(("cond", is_while, g, slot, inner))
 
-    def when(self, flag_t: torch.Tensor, body: Callable) -> None:
-        self._cond(0, flag_t, body)
+    def when(self, gate_t, body: Callable) -> None:
+        self._cond(0, gate_t, body)
 
-    def repeat(self, flag_t: torch.Tensor, body: Callable, trips: int | None = None) -> None:
-        self._cond(1, flag_t, body)
+    def repeat(self, gate_t, body: Callable, trips: int | None = None) -> None:
+        self._cond(1, gate_t, body)
 
 
 class Program:
@@ -190,6 +246,8 @@ class Program:
     run; ``name`` keys RUNS. Its graphs share a private memory pool that no
     other program uses, so dropping a program leaves no pool half released.
     Programs are kept and shared through ops/program_pool.py."""
+
+    items: tuple | list = ()  # the statement tree assembled at capture (_Capture.items)
 
     def __init__(self, build_fn: Callable, n_out: int, device, *, name: str):
         self.build_fn = build_fn
@@ -239,16 +297,19 @@ class Program:
                 _check(lib, lib.loop_add_child(graph, tail, raw, ctypes.byref(out)),
                        "cudaGraphAddChildGraphNode")
             else:
-                _, is_while, flag_t, slot, inner = item
+                _, is_while, g, slot, inner = item
                 body, handle = p(), ctypes.c_ulonglong()
-                fp, cp = p(flag_t.data_ptr()), p(self._counts[slot:].data_ptr())
-                _check(lib, lib.loop_add_cond(graph, tail, is_while, fp, cp, ctypes.byref(out),
+                gp = (p(g.mask.data_ptr()), g.mask.numel(),
+                      *(p(None if t is None else t.data_ptr()) for t in (g.counter, g.limit)))
+                cp = p(self._counts[slot:].data_ptr())
+                _check(lib, lib.loop_add_cond(graph, tail, is_while, *gp, cp, ctypes.byref(out),
                                               ctypes.byref(body), ctypes.byref(handle)),
                        "conditional node")
                 btail = self._assemble(lib, body, inner)
                 if is_while:
                     end = p()
-                    _check(lib, lib.loop_add_pred(body, btail, handle, fp, cp, ctypes.byref(end)),
+                    _check(lib, lib.loop_add_pred(body, btail, handle, *gp, cp,
+                                                  ctypes.byref(end)),
                            "loop predicate node")
             tail = out
         return tail
@@ -268,6 +329,7 @@ class Program:
         try:
             self._assemble(lib, graph, cap.items)
             _check(lib, lib.loop_instantiate(graph, ctypes.byref(exe)), "cudaGraphInstantiate")
+            self.items = cap.items
         finally:
             lib.loop_graph_destroy(graph)
         self._exec = exe

@@ -336,14 +336,16 @@ class LaneCG:
     ``iteration(b)`` is one line-search iteration of every lane still moving
     (``keep``): the sequential ladder's bracket steps and the secant steps
     are loops gated on "any lane still searching, under the step budget",
-    the counterpart of the JAX package's inner while_loops, and the
-    iteration ends by writing the next ``keep`` and the loop flag ``go``. ``solve(b, x0)`` is
-    minimize_fr_cg over every lane: start, then iterations while any lane is
-    RUNNING, under ``max_iters`` line searches and inside the trust radius.
-    Every decision is minimize_fr_cg's on each lane alone; a lane outside
-    ``keep`` keeps its state. No step reads a value on the host: with
-    ``device_loop.Eager`` the gates read their flags there (the CPU's form);
-    in a graph they are conditional nodes. Options as in minimize_fr_cg."""
+    the counterpart of the JAX package's inner while_loops (gates on the
+    ``active`` lanes with the step counter ``k`` or ``j``, read by the
+    predicate itself), and the iteration ends by writing the next ``keep``,
+    the CG loop's gate. ``solve(b, x0)`` is minimize_fr_cg over every lane:
+    start, then iterations while any lane is RUNNING, under ``max_iters``
+    line searches and inside the trust radius. Every decision is
+    minimize_fr_cg's on each lane alone; a lane outside ``keep`` keeps its
+    state. No step reads a value on the host: with ``device_loop.Eager`` the
+    gates are read there (the CPU's form); in a graph they are conditional
+    nodes. Options as in minimize_fr_cg."""
 
     def __init__(self, value_and_grad_fn: Callable, f_fn: Callable | None, lanes: int, dim: int,
                  device, *, max_iters: int = 50, line_search_tol: float = 0.05,
@@ -383,7 +385,13 @@ class LaneCG:
         self.k = fl(1, dtype=i32)  # the sequential ladder's step in the line search
         self.j = fl(1, dtype=i32)  # the secant step in the line search
         self.n = fl(1, dtype=i32)  # line searches done in a round (rounds)
-        self.any, self.go = device_loop.flag(dev), device_loop.flag(dev)
+        # The loops' gates, read by the predicate on the device: the lanes
+        # still searching and the ladder's or secant's step under its limit;
+        # the CG loop runs while any lane is kept.
+        self.bracket_gate = device_loop.Gate(self.active, self.k,
+                                             device_loop.limit(self.max_evals, dev))
+        self.refine_gate = device_loop.Gate(self.active, self.j,
+                                            device_loop.limit(self.refine_evals, dev))
 
     # -- state ------------------------------------------------------------
     def load(self, state: CGState, live: torch.Tensor | None = None) -> None:
@@ -394,7 +402,6 @@ class LaneCG:
             self.keep.fill_(True)
         else:
             self.keep.copy_(live)
-        device_loop.set_flag(self.go, self.keep)
 
     def state(self) -> CGState:
         return CGState(*(t.clone() for t in self.s))
@@ -403,7 +410,6 @@ class LaneCG:
         s = self.s
         keep = (s.status == RUNNING) & (s.it < self.max_iters) & _trusted(s.x, self.trust_radius)
         self.keep.copy_(keep)
-        device_loop.set_flag(self.go, keep)
 
     def start(self, x0: torch.Tensor) -> None:
         """Step: f and g at x0, a fresh state (cg_init), the first keep."""
@@ -425,38 +431,30 @@ class LaneCG:
     def iteration(self, b) -> None:
         b.seg(self._begin)
         if self.ladder == "sequential":
-            b.repeat(self.any, lambda: b.seg(self._bracket_step), trips=self.max_evals)
+            b.repeat(self.bracket_gate, lambda: b.seg(self._bracket_step), trips=self.max_evals)
             b.seg(self._refine_init)
-        b.repeat(self.any, lambda: b.seg(self._refine_step), trips=self.refine_evals)
+        b.repeat(self.refine_gate, lambda: b.seg(self._refine_step), trips=self.refine_evals)
         b.seg(self._end)
 
     def solve(self, b, x0: torch.Tensor) -> None:
         b.seg(lambda: self.start(x0))
-        b.repeat(self.go, lambda: self.iteration(b))
+        b.repeat(self.keep, lambda: self.iteration(b))
 
     def rounds(self, b, num_iters: torch.Tensor) -> None:
         """cg_run_rounds on the state in the buffers, as program steps: up to
         ``num_iters`` (an int32 (1,) device buffer, read at every run) line
         searches of every lane still RUNNING under ``max_iters``; stops
         early once no lane moves."""
-        def gate():
-            device_loop.set_flag(self.go, self.keep & (self.n < num_iters))
-
         def first():
             self._set_keep()
             self.n.zero_()
-            gate()
-
-        def counted():
-            self.n.add_(1)
-            gate()
 
         def body():
             self.iteration(b)
-            b.seg(counted)
+            b.seg(lambda: self.n.add_(1))
 
         b.seg(first)
-        b.repeat(self.go, body)
+        b.repeat(device_loop.Gate(self.keep, self.n, num_iters), body)
 
     def _begin(self) -> None:
         """Direction (restart on a non-descent one) and the ladder's bracket,
@@ -476,7 +474,6 @@ class LaneCG:
             self.grow.zero_()
             self.active.copy_(self.keep)
             self.k.zero_()
-            device_loop.set_flag(self.any, self.active & (self.k < self.max_evals))
             return
         x, alpha0 = s.x, s.alpha0
         if self.ladder == "vector":
@@ -535,7 +532,6 @@ class LaneCG:
         self.ab.copy_(torch.where(improved, a, self.ab))
         self.grow.copy_(self.grow | improved)
         self.active.copy_(active & ~stop)
-        device_loop.set_flag(self.any, self.active & (k < self.max_evals))
 
     def _refine_init(self) -> None:
         """Secant state from the bracket winner, for the bracketed lanes."""
@@ -545,7 +541,6 @@ class LaneCG:
         self.gb.copy_(self.s.g)
         self.active.copy_(self.grow)
         self.j.zero_()
-        device_loop.set_flag(self.any, self.active & (self.j < self.refine_evals))
 
     def _refine_step(self) -> None:
         """One secant step toward phi'(a) = 0 for the lanes still searching;
@@ -567,7 +562,6 @@ class LaneCG:
                            self.active), new):
             buf.copy_(v)
         self.j.add_(1)
-        device_loop.set_flag(self.any, self.active & (self.j < self.refine_evals))
 
     def _end(self) -> None:
         """The line search's outcome, the convergence tests in the

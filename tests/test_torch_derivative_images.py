@@ -193,3 +193,154 @@ def test_save_derivative_images_from_the_port(tmp_path):
     assert data[:8] == b"\x89PNG\r\n\x1a\n"
     w, h = int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
     assert (w, h) == (3 * WP, K * HP)  # 3K tiles, three to a row
+
+
+def _piled(rng, n=12_000, T=15, h=40, w=56, nan=True):
+    """A stream piled on a few pixels, as a window's events pile on its
+    landmarks: runs of consecutive events on 9 floor pixels (each event at
+    its own offset inside the pixel), with dropped events mixed in (NaN
+    coordinates, or with ``nan`` False a coordinate left of the image;
+    out-of-image coordinates, weight 0), and T coordinate tangents (NaN
+    where the coordinate is: never read)."""
+    centers = np.array([[5, 7], [5, 8], [6, 7], [20, 30], [20, 31], [33, 50], [10, 3],
+                        [36, 52], [18, 18]], np.float32)  # (y, x) floor pixels
+    which = np.repeat(rng.integers(0, len(centers), n // 40), 40)[:n]
+    py = centers[which, 0] + rng.uniform(0, 1, n).astype(np.float32)
+    px = centers[which, 1] + rng.uniform(0, 1, n).astype(np.float32)
+    wt = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    dropped = rng.uniform(size=n) < 0.1
+    kind = rng.integers(0, 4, n)
+    px[dropped & (kind == 0)] = np.nan if nan else -5.0
+    px[dropped & (kind == 1)] = w - 1.5  # floor past W - 3
+    py[dropped & (kind == 2)] = 0.5      # floor below 1
+    wt[dropped & (kind == 3)] = 0.0
+    tpx = rng.normal(size=(T, n)).astype(np.float32)
+    tpy = rng.normal(size=(T, n)).astype(np.float32)
+    tpx[:, dropped & (kind == 0)] = np.nan if nan else 0.0
+    return px, py, wt, tpx, tpy, h, w, dropped
+
+
+def test_plain_tangent_vote_matches_jax_on_a_piled_stream():
+    """K3's plain version against JAX's forward mode through its scatter
+    vote (jax.jvp of ops/scatter.py's bilinear_accumulate_scatter along each
+    tangent, as jax.jacfwd takes it column by column) on a piled stream:
+    thousands of votes a pixel, summed in another order, within 1e-5 of the
+    largest pixel (K3's tolerance); the dropped events alone vote zeros.
+    JAX's forward mode turns a NaN coordinate's zero weight into NaN
+    tangents (0 x NaN), so its dropped events here have finite coordinates;
+    the port drops NaN ones exactly (test_plain_tangent_vote_is_the_jvp_of_the_plain_vote)."""
+    from cmax_slam_tpu.ops import scatter as jscatter
+    import jax
+
+    px, py, wt, tpx, tpy, h, w, dropped = _piled(np.random.default_rng(11), nan=False)
+    got = scatter.bilinear_accumulate_jvp(*(torch.tensor(a) for a in (px, py, wt, tpx, tpy)),
+                                          h, w)
+
+    def vote(x, y):
+        return jscatter.bilinear_accumulate_scatter(x, y, jnp.asarray(wt), height=h, width=w)
+
+    want = np.stack([np.asarray(jax.jvp(vote, (jnp.asarray(px), jnp.asarray(py)),
+                                        (jnp.asarray(tpx[t]), jnp.asarray(tpy[t])))[1])
+                     for t in range(tpx.shape[0])])
+    scale = float(np.abs(want).max())
+    assert scale > 100.0  # piled: many votes a pixel
+    assert float(np.abs(got.numpy() - want).max()) <= 1e-5 * scale
+    dead = [torch.tensor(a[..., dropped]) for a in (px, py, wt, tpx, tpy)]
+    assert not bool(scatter.bilinear_accumulate_jvp(*dead, h, w).any())
+
+
+def test_one_call_of_t_tangents_equals_t_calls_of_one():
+    """K3 now shares each event's load, floor and keep test across its T
+    tangents: the T-tangent plain call equals T one-tangent calls, exactly,
+    on the piled stream."""
+    px, py, wt, tpx, tpy, h, w, _ = _piled(np.random.default_rng(12))
+    ev = [torch.tensor(a) for a in (px, py, wt)]
+    tx, ty = torch.tensor(tpx), torch.tensor(tpy)
+    whole = scatter.bilinear_accumulate_jvp(*ev, tx, ty, h, w)
+    for t in range(tx.shape[0]):
+        one = scatter.bilinear_accumulate_jvp(*ev, tx[t:t + 1], ty[t:t + 1], h, w)
+        assert torch.equal(one[0], whole[t])
+
+
+def _taps(px, py, wt, tpx, tpy, h, w):
+    """Each event's floor-pixel key (h * w when dropped) and its four tap
+    derivatives per tangent, (T, N, 4), zero for a dropped event."""
+    with np.errstate(invalid="ignore"):
+        fx, fy = np.floor(px), np.floor(py)
+        keep = (fx >= 1) & (fx < w - 2) & (fy >= 1) & (fy < h - 2) & (wt != 0)
+        dx, dy = (np.where(keep, a - f, 0.0).astype(np.float32) for a, f in ((px, fx), (py, fy)))
+    key = np.where(keep, np.nan_to_num(fy) * w + np.nan_to_num(fx), h * w).astype(np.int64)
+    x, y = (np.where(keep, t, 0.0).astype(np.float32) for t in (tpx, tpy))
+    ww = np.where(keep, wt, 0.0).astype(np.float32)
+    v = np.stack([ww * (-x * (1 - dy) - y * (1 - dx)), ww * (x * (1 - dy) - y * dx),
+                  ww * (-x * dy + y * (1 - dx)), ww * (x * dy + y * dx)], -1)
+    return key, v.astype(np.float32)
+
+
+def _add(out, key, sums, w):
+    for t in range(out.shape[0]):
+        np.add.at(out[t], np.stack([key, key + 1, key + w, key + w + 1], -1), sums[t])
+
+
+def _block_sorted_jvp(px, py, wt, tpx, tpy, h, w, per_block=1024):
+    """K3 in numpy: blocks of ``per_block`` consecutive events (a warp holds
+    32 consecutive ones). A block none of whose warps holds two kept events
+    on one floor pixel adds every kept event's taps at once; any other
+    block sorts its events by floor pixel (dropped last), and each warp of
+    32 sorted events sums each run of equal pixels by the kernel's
+    segmented suffix sum (at step d, lane i adds lane i + d while i + d is
+    in its run), whose first lane adds the sums. Returns the images, the
+    atomics per tangent and the blocks that sorted."""
+    key, v = _taps(px, py, wt, tpx, tpy, h, w)
+    out = np.zeros((tpx.shape[0], h * w + w + 2), np.float32)
+    adds = sorted_blocks = 0
+    for b0 in range(0, len(px), per_block):
+        idx = np.arange(b0, min(len(px), b0 + per_block))
+        warps = [key[idx[i:i + 32]] for i in range(0, len(idx), 32)]
+        if not any(len(np.unique(k[k < h * w])) < int((k < h * w).sum()) for k in warps):
+            kept = idx[key[idx] < h * w]
+            _add(out, key[kept], v[:, kept], w)
+            adds += 4 * len(kept)
+            continue
+        sorted_blocks += 1
+        idx = idx[np.argsort(key[idx], kind="stable")]
+        for w0 in range(0, len(idx), 32):
+            lanes = idx[w0:w0 + 32]
+            k, vals = key[lanes], v[:, lanes].copy()
+            last = np.array([np.flatnonzero(k == kk).max() for kk in k])
+            for d in (1, 2, 4, 8, 16):
+                shifted = np.zeros_like(vals)
+                shifted[:, :len(k) - d] = vals[:, d:]
+                ok = (np.arange(len(k)) + d <= last)[None, :, None]
+                vals = vals + np.where(ok, shifted, 0.0)
+            heads = np.flatnonzero((np.r_[True, k[1:] != k[:-1]]) & (k < h * w))
+            _add(out, k[heads], vals[:, heads], w)
+            adds += 4 * len(heads)
+    return out[:, :h * w].reshape(-1, h, w), adds, sorted_blocks
+
+
+@pytest.mark.parametrize("stream", ["piled", "spread"])
+def test_block_sorted_sums_equal_the_plain_tangent_vote(stream):
+    """K3's sums before its atomics, emulated in numpy with fewer tangents:
+    on the piled stream every block sorts and adds far fewer times than
+    once per tap of a kept event; on events spread over the image (no warp
+    with two on one pixel) no block sorts and every tap is added at once.
+    Within 1e-5 of the plain version's largest pixel either way."""
+    rng = np.random.default_rng(13)
+    if stream == "piled":
+        px, py, wt, tpx, tpy, h, w, dropped = _piled(rng, n=3000, T=3)
+    else:
+        (px, py, wt), h, w = (t.numpy() for t in _events(rng)[0]), 400, 560
+        px, py = px * 10, py * 10  # one event on a pixel, about
+        tpx, tpy = (rng.normal(size=(3, len(px))).astype(np.float32) for _ in range(2))
+    got, adds, sorted_blocks = _block_sorted_jvp(px, py, wt, tpx, tpy, h, w)
+    want = scatter.bilinear_accumulate_jvp(*(torch.tensor(a) for a in (px, py, wt, tpx, tpy)),
+                                           h, w).numpy()
+    assert float(np.abs(got - want).max()) <= 1e-5 * float(np.abs(want).max())
+    kept = int((_taps(px, py, wt, tpx, tpy, h, w)[0] < h * w).sum())
+    blocks = -(-len(px) // 1024)
+    if stream == "piled":
+        assert kept == len(px) - int(dropped.sum())
+        assert sorted_blocks == blocks and adds < 4 * kept / 10
+    else:
+        assert sorted_blocks == 0 and adds == 4 * kept
