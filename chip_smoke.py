@@ -5,9 +5,11 @@
 
 Phases, in order; any failure exits non-zero:
 1. card: prints ``nvidia-smi --query-gpu=name,power.limit`` as it reports them;
-2. build: compiles csrc/iwe.cu (the vote kernels) and csrc/loop.cu (the loop
-   predicate and graph assembly), one nvcc each, started together; prints
-   the seconds;
+2. build: the host data plane's library (io/native.py: native/evstream.cpp
+   with the host C++ compiler into _build/; native.available() must hold),
+   then csrc/iwe.cu (the vote kernels), csrc/loop.cu (the loop predicate
+   and graph assembly) and csrc/pano_vote.cu (K4/K5), one nvcc each,
+   started together; prints the seconds of each;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main path's shapes (front-end rung sweep, back-end window on a crop,
    old/new split on the full panorama, the batched tracker's lanes) and at
@@ -73,7 +75,10 @@ Phases, in order; any failure exits non-zero:
    and no call synchronizes outside the captures, by
    torch.cuda.set_sync_debug_mode("warn") (SyncAudit, which also counts
    the explicit waits by call site); each window comes back from step() or
-   flush() exactly once. Prints graph launches per path, the loop
+   flush() exactly once; every push runs one trigger scan through the host
+   library (ScanAudit: the scans counted and timed on the host, then the
+   same stored times scanned through the library and the plain version in
+   turns, with equal results). Prints graph launches per path, the loop
    predicate's executions, captures and their seconds, the waits per
    packet, per stride and per window and the peak device memory, and the
    nodes of one CG iteration of the packet and crop-window programs; K4
@@ -126,7 +131,10 @@ Phases, in order; any failure exits non-zero:
    final_state.npz must continue the packet grid;
 6. batched: ``cut_packets`` and ``track_batched_compacted(sweeps=2)`` on the
    same stream at full width (240x180, 10 000-event packets, the stock ijrr
-   front-end), called twice: median |omega - omega_true| < 0.2 rad/s, every
+   front-end); the cut must scan once and gather every packet through the
+   host library, and is timed through the library and the plain versions
+   in turns (cut_in_turns: seconds per call, the gather's share, packets
+   torch.equal); the tracker called twice: median |omega - omega_true| < 0.2 rad/s, every
    lane's iterations in (0, max_line_searches], every round one graph
    launch of a pooled round program, one host wait per round and one read
    of the result (SyncAudit), both kernels launched, one K1 launch of at
@@ -135,10 +143,14 @@ Phases, in order; any failure exits non-zero:
    call packets per second, rounds, captures and host reads per round, and
    the median difference against phase 4's sequential log;
 7. multi-device on one card, with the device list ["cuda:0", "cuda:0"]: the
-   event-sharded window objective against the single-device one on a
-   back-end window of the stream, at the ijrr 512x1024 panorama and at
-   2048x4096 (the blur's shift-and-add path), value within rtol 2e-5 and
-   gradient within rtol 2e-3, atol 2e-6; then the 2-segment replay
+   event-sharded window objective against the single-device one, both
+   through K4/K5, on a back-end window of the stream with an odd batch
+   count (a padding batch), at the ijrr 512x1024 panorama and at 2048x4096
+   (the blur's shift-and-add path), value within rtol 2e-5 and gradient
+   within rtol 2e-3, atol 2e-6, K5 raw on each shard's operands twice
+   torch.equal and exactly 0 for an all-padding shard, K4 and K5 launched
+   and K1/K2 not, value_and_grad timed in turns (sharded,
+   single-device, single-device, sharded); then the 2-segment replay
    (overlap 0.4 s) on the stock preset, stitched RMS < 0.5 deg, its two
    live segments on distinct pool entries.
 
@@ -163,7 +175,9 @@ of phase 7, each counted from 0), error, times and bound, and the same per
 variant (K1: G, P), with K1's launches on the system path by shape bucket;
 K3's launches are those of the derivative-images path; K4's and K5's by
 path, spline order and shape, K4's with the captured crop evaluation's
-nodes and time through K4/K5 and through the composed route; the last line is ``{"ok": true,
+nodes and time through K4/K5 and through the composed route. A line before
+it, "host data plane: {...}", holds the host library's build time, its
+scans per system run and the cut's times both ways; the last line is ``{"ok": true,
 "device": {...}}``. Imports
 neither jax nor the JAX package.
 """
@@ -1260,19 +1274,27 @@ def make_stream(duration: float = 2.0):
 
 def _launches() -> dict:
     """K1/K2 launches by kernel and variant since _reset_launches, and as
-    "graph_<key>" the part of them that ran inside CUDA graphs."""
+    "graph_<key>" the part of them that ran inside CUDA graphs; as
+    "host_<function>" the calls of the host data plane's library
+    (io/native.py)."""
+    from cmax_slam_tpu_torch.io import native
     from cmax_slam_tpu_torch.ops import cuda_iwe
 
-    return dict(cuda_iwe.LAUNCHES) | {f"graph_{k}": v for k, v in cuda_iwe.GRAPH_LAUNCHES.items()}
+    return (dict(cuda_iwe.LAUNCHES)
+            | {f"graph_{k}": v for k, v in cuda_iwe.GRAPH_LAUNCHES.items()}
+            | {f"host_{k}": v for k, v in native.CALLS.items()})
 
 
 def _reset_launches():
     """Every kernel count to 0: K1/K2 by variant, the loop predicate, the
-    graph launches and captures of the device programs."""
+    graph launches and captures of the device programs, the host data
+    plane's library calls."""
+    from cmax_slam_tpu_torch.io import native
     from cmax_slam_tpu_torch.ops import cuda_iwe, device_loop
 
     for k in cuda_iwe.LAUNCHES:
         cuda_iwe.LAUNCHES[k] = cuda_iwe.GRAPH_LAUNCHES[k] = 0
+    native.CALLS.update(dict.fromkeys(native.CALLS, 0))
     device_loop.LAUNCHES["pred"] = 0
     device_loop.RUNS.clear()
     device_loop.CAPTURES.update(graphs=0, segments=0, s=0.0)
@@ -1479,7 +1501,55 @@ class SyncAudit:
                 "event_waits_by_site": dict(sorted(self.waits.items(), key=lambda kv: -kv[1]))}
 
 
-def _push(slam, ev, lo: int, hi: int, chunk: int = 39_000) -> None:
+class ScanAudit:
+    """The front-end's trigger scans over a block (Frontend._scan_triggers,
+    one per push): wraps io/native.scan_triggers, times each library call
+    on the host and keeps its operands (the store's times are never written
+    in place: a push replaces the array). ``report`` then scans the same
+    operands again through the library and through the plain version, in
+    turns (library, plain, plain, library), and compares their results."""
+
+    def __enter__(self):
+        from cmax_slam_tpu_torch.io import native
+
+        self.native, self.scan, self.calls = native, native.scan_triggers, []
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            out = self.scan(*args)
+            self.calls.append((args, out, time.perf_counter() - t0))
+            return out
+
+        native.scan_triggers = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.native.scan_triggers = self.scan
+        return False
+
+    def report(self) -> dict:
+        lib_s, plain_s, equal, triggers = [], [], True, 0
+        for args, out, _ in self.calls:
+            for fn, acc in ((self.scan, lib_s), (self.native.scan_triggers_plain, plain_s),
+                            (self.native.scan_triggers_plain, plain_s), (self.scan, lib_s)):
+                t0 = time.perf_counter()
+                res = fn(*args)
+                acc.append(time.perf_counter() - t0)
+                equal &= bool(np.array_equal(res[0], out[0])) and res[1:] == out[1:]
+            triggers += len(out[0])
+        n = len(self.calls)
+        return {"calls": n, "triggers": triggers, "equal": equal,
+                "in_run_us_per_call": sum(c[2] for c in self.calls) / max(n, 1) * 1e6,
+                "library_us_per_call": float(np.mean(lib_s)) * 1e6 if n else None,
+                "plain_us_per_call": float(np.mean(plain_s)) * 1e6 if n else None,
+                "events_per_call": float(np.mean([len(c[0][0]) for c in self.calls]))
+                if n else None}
+
+
+PUSH_EVENTS = 39_000  # events per push_events call in the system runs
+
+
+def _push(slam, ev, lo: int, hi: int, chunk: int = PUSH_EVENTS) -> None:
     for i in range(lo, hi, chunk):
         j = min(i + chunk, hi)
         slam.push_events(ev.xs[i:j], ev.ys[i:j], ev.ts[i:j], ev.pols[i:j])
@@ -1572,9 +1642,10 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     sync_audit = SyncAudit(device if audit else "cpu")
+    scans = ScanAudit()
     t0 = time.perf_counter()
     try:
-        with sync_audit:
+        with sync_audit, scans:
             _push(slam, ev, 0, n)
         loop = dict(slam.metrics.counters)  # the push loop's counts alone
         loop["windows_completed"] = len(slam.backend.results)
@@ -1588,6 +1659,8 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
     _read_spy(tally)
     launches = _launches()
     graphs = _graph_stats(slam, device, loop, sync_audit)
+    graphs["scan"] = scan = scans.report()
+    pushes = len(range(0, n, PUSH_EVENTS))
 
     be = slam.backend
     wins = slam.window_results()
@@ -1609,11 +1682,19 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
          f"{graphs['backend_waits']} ({graphs['host_reads_per_window']:.4f} per completed "
          f"window, {graphs['resolves']} synchronous re-solves); sync-debug "
          f"{json.dumps(graphs.get('audit'))}")
+    _log(f"{label}: trigger scans through the host library {launches['host_scan_triggers']} "
+         f"for {pushes} pushes ({scan['triggers']} triggers, {scan['events_per_call']} stored "
+         f"events per scan); host us per scan {scan['in_run_us_per_call']:.2f} in the run, "
+         f"{scan['library_us_per_call']:.2f} library against {scan['plain_us_per_call']:.2f} "
+         f"plain on the same stored times (in turns); results equal {scan['equal']}")
     checks = {
         "state on the device": all(t.device.type == device for t in (
             be.IG, be.update_times, be.lut_dev, slam.frontend.lut)),
         "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
         "K4 and K5 launched": launches["pano_fwd"] > 0 and launches["pano_bwd"] > 0,
+        "every push scanned through the host library": (
+            launches["host_scan_triggers"] == scan["calls"] == pushes > 0),
+        "library scans equal the plain version's": scan["equal"],
         ">= 15 BA windows": n_ba >= 15,
         "finite omega log": log.shape[1] == 4 and bool(np.isfinite(log).all()),
         "RMS < 0.3 deg": rms < 0.3,
@@ -2057,8 +2138,11 @@ def run_batched(device: str = "cuda", seq_log=None, duration: float = 2.0):
     bucket the first call did not meet). Per call: wall and
     packets/s, rounds (graph launches of the round programs), captures, and
     the host's waits (SyncAudit): one per round, the round's status read,
-    plus the call's final result, and none inside a round. Returns
-    (launches during the second call, {check: passed})."""
+    plus the call's final result, and none inside a round. The cut's calls
+    of the host library are counted, and the cut is timed through the
+    library and the plain versions (cut_in_turns). Returns (launches during
+    the second call, {check: passed}, {"calls": per-call stats, "cut": the
+    cut's})."""
     import torch
     from cmax_slam_tpu_torch.calib import bearing_lut
     from cmax_slam_tpu_torch.config import ijrr_config
@@ -2068,10 +2152,17 @@ def run_batched(device: str = "cuda", seq_log=None, duration: float = 2.0):
     ev, omega, calib = make_stream(duration)
     cfg = ijrr_config().frontend
     cam = _cam(calib)
+    _reset_launches()
     t0 = time.perf_counter()
     pb = batched.cut_packets(ev.xs, ev.ys, ev.ts, bearing_lut(calib), cam, cfg, device=device)
     t_cut = time.perf_counter() - t0
     n = pb.bearings.shape[0]
+    cut_calls = {k: v for k, v in _launches().items() if k.startswith("host_")}
+    cut = cut_in_turns(ev, calib, cfg, device, pb)
+    _log(f"batched: cut_packets through the host library: {json.dumps(cut_calls)} for {n} "
+         f"packets; s per call in turns (library, plain, plain, library) "
+         f"{json.dumps(cut['s'])}, of which the gather {json.dumps(cut['gather_s'])}; "
+         f"packets equal both ways {cut['equal']}")
     max_ls = cfg.optim.max_line_searches
 
     # Widest K1 launch, read through a wrapper of the kernel wrapper (counts
@@ -2141,6 +2232,9 @@ def run_batched(device: str = "cuda", seq_log=None, duration: float = 2.0):
          f"vs sequential log {vs_seq}; widest K1 launch B={widest[0]}; pool "
          f"{json.dumps(program_pool.stats())}")
     checks |= {
+        "the cut scanned once and gathered every packet through the host library": (
+            cut_calls["host_scan_triggers"] == 1 and cut_calls["host_gather_packet"] == n > 0),
+        "cut packets equal through the library and the plain version": cut["equal"],
         "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
         "a K1 launch of >= 224 lanes' images": widest[0] >= 224,
         # A lane's convergence differs between calls by K1's atomic sum order,
@@ -2149,7 +2243,48 @@ def run_batched(device: str = "cuda", seq_log=None, duration: float = 2.0):
         "second call captures only the programs it builds": (
             second["captures"]["graphs"] == second["programs_built"]),
     }
-    return launches, checks, calls
+    return launches, checks, {"calls": calls,
+                              "cut": cut | {"calls": cut_calls, "first_s": t_cut}}
+
+
+def cut_in_turns(ev, calib, cfg, device: str, pb) -> dict:
+    """``batched.cut_packets`` on the same stream through the host library
+    and through the plain versions (io/native.py's ``*_plain`` swapped in),
+    in turns (library, plain, plain, library): seconds per call, the part
+    spent in gather_packet, and whether every packet equals ``pb``."""
+    import torch
+    from cmax_slam_tpu_torch.calib import bearing_lut
+    from cmax_slam_tpu_torch.io import native
+    from cmax_slam_tpu_torch.parallel import batched
+
+    lut = bearing_lut(calib)
+    lib = (native.scan_triggers, native.gather_packet)
+    plain = (native.scan_triggers_plain, native.gather_packet_plain)
+    out = {"s": {"library": [], "plain": []}, "gather_s": {"library": [], "plain": []},
+           "equal": True}
+    try:
+        for route in ("library", "plain", "plain", "library"):
+            scan, gather = lib if route == "library" else plain
+            spent = [0.0]
+
+            def timed_gather(*a, gather=gather, spent=spent):
+                t0 = time.perf_counter()
+                res = gather(*a)
+                spent[0] += time.perf_counter() - t0
+                return res
+
+            native.scan_triggers, native.gather_packet = scan, timed_gather
+            t0 = time.perf_counter()
+            got = batched.cut_packets(ev.xs, ev.ys, ev.ts, lut, _cam(calib), cfg, device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out["s"][route].append(time.perf_counter() - t0)
+            out["gather_s"][route].append(spent[0])
+            out["equal"] &= all(torch.equal(a, b) for a, b in zip(got[:3], pb[:3])) and bool(
+                np.array_equal(got.times, pb.times))
+    finally:
+        native.scan_triggers, native.gather_packet = lib
+    return out
 
 
 def make_window(ev, omega, calib, pano_hw, device, t_lo=0.5, span=0.2, dt_knots=0.05,
@@ -2186,10 +2321,15 @@ def make_window(ev, omega, calib, pano_hw, device, t_lo=0.5, span=0.2, dt_knots=
 def run_window_shard(device: str = "cuda", devices=("cuda:0", "cuda:0"),
                      panos=((512, 1024), (2048, 4096)), duration: float = 2.0):
     """Phase 7a: the event-sharded window objective against the
-    single-device one. Returns (launches, {check: passed})."""
+    single-device one, both through K4/K5 (warp_pano.pano_vote), on a
+    window whose batch count the device list does not divide (a padding
+    batch). Value and gradient compared, K5 on each shard's operands
+    checked (k5_on_shards), and value_and_grad timed in turns (sharded,
+    single, single, sharded). Returns (launches of the sharded
+    evaluations, {check: passed}, {panorama: ms})."""
     import torch
     from cmax_slam_tpu_torch.calib import EquirectCamera
-    from cmax_slam_tpu_torch.ops import cuda_iwe, warp_pano
+    from cmax_slam_tpu_torch.ops import warp_pano
     from cmax_slam_tpu_torch.parallel.window_shard import (
         make_sharded_pano_objective, shard_window_events)
 
@@ -2206,9 +2346,16 @@ def run_window_shard(device: str = "cuda", devices=("cuda:0", "cuda:0"),
             torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) / reps * 1e3
 
-    checks, launches = {}, dict.fromkeys(_launches(), 0)
+    checks, launches, times = {}, dict.fromkeys(_launches(), 0), {}
     for hw in panos:
         win = make_window(ev, omega, calib, hw, device)
+        B = win.batch_times.shape[0]
+        if B % len(devices) == 0:  # one batch fewer: the last shard takes a padding batch
+            E = win.weights.shape[0] // B
+            win = win._replace(bearings=win.bearings[:, :-E].contiguous(),
+                               batch_times=win.batch_times[:-1], weights=win.weights[:-E],
+                               is_old=win.is_old[:-E])
+            B -= 1
         pano = EquirectCamera(width=hw[1], height=hw[0])
         K = win.knots.shape[0]
         x = torch.as_tensor(0.01 * np.random.default_rng(1).normal(size=3 * K),
@@ -2221,21 +2368,57 @@ def run_window_shard(device: str = "cuda", devices=("cuda:0", "cuda:0"),
         for k, v in _launches().items():
             launches[k] += v
         (v_ref, g_ref), ms_ref = timed(vg_ref, x)
+        ms_ref2, ms_sh2 = timed(vg_ref, x)[1], timed(vg_sh, x)[1]
+        k5 = k5_on_shards(shards, pano) if device == "cuda" else {}
         v_sh, v_ref, g_sh, g_ref = (float(v_sh), float(v_ref), g_sh.cpu().numpy(),
                                     g_ref.cpu().numpy())
         tag = f"{hw[0]}x{hw[1]}"
-        _log(f"window_shard {tag}: {win.weights.shape[0]} events in "
-             f"{win.batch_times.shape[0]} batches over {len(devices)} devices; value "
+        times[tag] = {"sharded_ms": [ms_sh, ms_sh2], "single_ms": [ms_ref, ms_ref2]}
+        _log(f"window_shard {tag}: {win.weights.shape[0]} events in {B} batches over "
+             f"{len(devices)} devices ({shards[0].batch_times.shape[0]} batches a shard, "
+             f"{len(devices) * shards[0].batch_times.shape[0] - B} padding); value "
              f"{v_sh:.9g} vs single-device {v_ref:.9g} (rel {abs(v_sh - v_ref) / abs(v_ref):.2e});"
              f" grad max abs diff {np.abs(g_sh - g_ref).max():.3e} (max |g| "
-             f"{np.abs(g_ref).max():.3e}); value_and_grad {ms_sh:.2f} ms sharded, "
-             f"{ms_ref:.2f} ms single-device")
+             f"{np.abs(g_ref).max():.3e}); K5 on the shards {json.dumps(k5)}; "
+             f"value_and_grad ms in turns: sharded {ms_sh:.2f}, single-device {ms_ref:.2f}, "
+             f"{ms_ref2:.2f}, sharded {ms_sh2:.2f}")
         checks[f"{tag} value rtol 2e-5"] = bool(np.isfinite(v_sh)) and np.isclose(
             v_sh, v_ref, rtol=2e-5, atol=0)
         checks[f"{tag} gradient rtol 2e-3 atol 2e-6"] = bool(
             np.allclose(g_sh, g_ref, rtol=2e-3, atol=2e-6))
-    checks["both kernels launched"] = launches["fwd"] > 0 and launches["bwd"] > 0
-    return launches, checks
+        checks |= {f"{tag} {k}": v for k, v in k5.items()}
+    _log(f"window_shard: launches of the sharded evaluations {json.dumps(launches)}")
+    checks["K4 and K5 launched"] = launches["pano_fwd"] > 0 and launches["pano_bwd"] > 0
+    checks["no K1 or K2 launch (no composed route)"] = launches["fwd"] == launches["bwd"] == 0
+    return launches, checks, times
+
+
+def k5_on_shards(shards, pano, order: int = 2) -> dict:
+    """K5 on each shard's own operands (on a repeated device, views at
+    offsets into one window), by raw launches (not counted): two launches
+    with one upstream gradient torch.equal (its fixed-order sum), and the
+    shard with every weight 0 (all padding) exactly 0."""
+    import torch
+    from cmax_slam_tpu_torch import spline
+    from cmax_slam_tpu_torch.ops import cuda_pano_vote
+
+    gen = torch.Generator(device=shards[0].weights.device).manual_seed(5)
+    same = zero = True
+    for sh in shards:
+        K = sh.knots.shape[0]
+        basis = spline.segment_basis(sh.batch_times, sh.t0, sh.dt_knots, K, order)
+        d = torch.full((1, K, 3), 0.01, device=sh.weights.device)
+        g = torch.rand((1, pano.height, pano.width), device=sh.weights.device, generator=gen)
+        outs = []
+        for w in (sh, sh, sh._replace(weights=torch.zeros_like(sh.weights))):
+            ops = cuda_pano_vote.prepare(d, w, basis, pano, order, None)
+            out = torch.empty_like(ops.delta)
+            cuda_pano_vote.launch_bwd(ops, g, cuda_pano_vote.bwd_scratch(ops), out)
+            outs.append(out)
+        same &= bool(torch.equal(outs[0], outs[1]))
+        zero &= bool(torch.all(outs[2] == 0))
+    return {"K5 twice on one g torch.equal per shard": same,
+            "K5 of all-padding events exactly 0": zero}
 
 
 def run_replay(devices=("cuda:0", "cuda:0"), duration: float = 2.0):
@@ -2421,7 +2604,7 @@ def loop_in_turns(parent: str, card: str) -> dict:
         out[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
         _log(f"turns: {name} loop bodies {out[name][-1]}")
     _log(f"loop bodies in turns on {card}: us per iteration " + json.dumps(
-        {t: [{b: round(r[b]["us_per_iteration"], 3) for b in r if b != "folded_gates"}
+        {t: [{b: round(r[b]["us_per_iteration"], 3) for b in r}
              for r in runs] for t, runs in out.items()}))
     return out
 
@@ -2782,7 +2965,6 @@ sys.path.insert(0, ".")
 sys.path.insert(0, {tools!r})
 import chip_smoke, loop_latency
 from cmax_slam_tpu_torch.ops import device_loop
-loop_latency.keep_items(device_loop)
 walls, captures, nodes = [], [], None
 for _ in range(2):  # the first run's system is released before the second
     run = chip_smoke.run_system(label="turn")
@@ -2872,10 +3054,18 @@ def main() -> int:
     # PyTorch's defaults for matmuls, stated here so no environment changes them.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from cmax_slam_tpu_torch.io import native
     from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_pano_vote, device_loop, nvcc, program_pool
 
     card = card_line()
     _log(f"card: {card}  (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    t0 = time.perf_counter()
+    if not native.available():
+        native.build()  # raises with the compiler's output
+    host_build_s = time.perf_counter() - t0
+    _log(f"host data plane: {native.library_path().name} built from "
+         f"{os.path.relpath(native.SOURCE, REPO)} with {native.compiler()} "
+         f"{' '.join(native.CXX_FLAGS)} in {host_build_s:.2f} s")
     global PARENT
     parent = (os.path.abspath(sys.argv[sys.argv.index("--parent") + 1])
               if "--parent" in sys.argv else None)
@@ -2979,14 +3169,19 @@ def main() -> int:
     del cubic  # its system: the later phases lease its entries
     resume_launches = phase("resume", run_resume)[0]
     cli_launches = phase("cli", run_cli)[0]
-    batched_launches = phase("batched", run_batched, seq_log=seq_log)[0]
-    shard_launches = phase("window_shard", run_window_shard)[0]
+    batched_launches, _, batched_calls = phase("batched", run_batched, seq_log=seq_log)
+    shard_launches, _, shard_ms = phase("window_shard", run_window_shard)
     replay_launches = phase("replay", run_replay)[0]
     loop_turns = walls = None
     if parent is not None:  # the loop and phase 4's wall against another commit, in turns
         loop_turns = loop_in_turns(parent, card)
         walls = walls_in_turns(parent, card, fewer_per_gate)
 
+    _log("host data plane: " + json.dumps({
+        "library": native.library_path().name, "build_s": host_build_s,
+        "scans_by_path": {p: g["scan"] for p, g in graphs.items()},
+        "cut_packets": batched_calls["cut"], "card": card}))
+    _log(f"window_shard value_and_grad ms in turns on {card}: {json.dumps(shard_ms)}")
     _log("device programs per path: " + json.dumps(graphs))
     _log("captures per later phase: " + json.dumps(captures))
     _log(f"program pool at the end: {json.dumps(program_pool.stats())}; peak device memory "

@@ -252,7 +252,8 @@ class Frontend:
         background resources (estimates finalize on the caller's thread)."""
 
     def _scan_triggers(self) -> None:
-        """Find subset-cursor crossings among newly stored events."""
+        """Find subset-cursor crossings among newly stored events (the C++
+        scan of io/native.py, reading the store's times in place)."""
         store = self.store
         rel_next = max(self._next_check_abs - store.base, 0)
         trig, self._cursor, rel_next = native.scan_triggers(

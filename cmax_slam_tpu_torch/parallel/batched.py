@@ -64,8 +64,12 @@ def cut_packets(
     bs = cfg.warp.event_batch_size
     S = ((2 * half + bs - 1) // bs) * bs
 
+    # once here, not per packet: the library reads arrays of its dtypes in place
+    xs, ys = np.ascontiguousarray(xs, np.int32), np.ascontiguousarray(ys, np.int32)
+    ts, lut = np.ascontiguousarray(ts, np.float64), np.ascontiguousarray(lut, np.float32)
     t0 = float(ts[0])
-    trig, _, _ = native.scan_triggers(ts, t0 + 0.5 * cfg.dt_ang_vel, 0, cfg.dt_ang_vel)
+    trig, _, _ = native.scan_triggers(ts, t0 + 0.5 * cfg.dt_ang_vel, 0, cfg.dt_ang_vel,
+                                      max_out=1 << 22)
     trig = trig[(trig + 1 + half) <= len(ts)]  # keep only complete packets
     Pn = len(trig)
     bearings = np.zeros((Pn, S, 3), np.float32)

@@ -4,11 +4,12 @@ cmax_slam_tpu/parallel/window_shard.py.
 
 The reference's back-end is strictly single-threaded (SURVEY.md section 2.3);
 the segmented replay (parallel/replay.py) parallelizes across TIME. This
-module parallelizes WITHIN one window: each device warps its shard of the
-window's event batches through the (replicated) window sub-spline and votes
-a partial (H, W) image through K1; the partials are summed on the first
+module parallelizes WITHIN one window: each device takes its shard of the
+window's event batches through the single-device objective's own spline,
+warp and vote (warp_pano.pano_vote: K4 on the card, the plain version on
+the CPU) into a partial (H, W) image; the partials are summed on the first
 device, where the blend, blur and contrast run. The gradient flows back
-through the ``.to()`` copies and K2 on every shard. This is the
+through the ``.to()`` copies and K5 on every shard. This is the
 single-process form of the JAX package's ``shard_map`` + ``psum``: one
 (H, W) float32 image crosses from each device per evaluation.
 """
@@ -19,11 +20,11 @@ from typing import List
 
 import torch.nn.functional as F
 
+from .. import spline
 from ..calib import EquirectCamera
 from ..ops import warp_pano
 from ..ops.blur import gaussian_blur
 from ..ops.contrast import contrast
-from ..ops.scatter import vote
 from ..ops.warp_local import value_and_grad
 from ..ops.warp_pano import PanoWindow
 from ..utils.device import resolve_devices
@@ -38,7 +39,13 @@ def shard_window_events(win: PanoWindow, devices) -> List[PanoWindow]:
     the constant ray (1, 1, 1), NOT zeros: the equirect projection divides
     by the ray's norm and a zero ray gives arcsin(0/0) = NaN, which a weight-0
     vote would still turn into 0 * NaN (the NaN regression of the JAX
-    package at B=1300 on 8 devices)."""
+    package at B=1300 on 8 devices). Their batch time 0 falls in a spline
+    segment of the window like any other (segment_basis clamps it), and K5
+    skips an event of weight 0, so they add exactly 0 to the gradient.
+
+    Each shard owns a copy of the knots: K4 and K5 read them as 16-byte
+    quaternions, and on a list that repeats a device ``.to()`` would hand
+    every shard the window's own tensor, wherever it lies."""
     devices = resolve_devices(devices)
     n_dev = len(devices)
     B = win.batch_times.shape[0]
@@ -61,7 +68,7 @@ def shard_window_events(win: PanoWindow, devices) -> List[PanoWindow]:
             batch_times=win.batch_times[i * nb:(i + 1) * nb].to(dev),
             weights=win.weights[ev].to(dev),
             is_old=win.is_old[ev].to(dev),
-            knots=win.knots.to(dev), free_mask=win.free_mask.to(dev),
+            knots=win.knots.to(dev, copy=True), free_mask=win.free_mask.to(dev),
             t0=win.t0, dt_knots=win.dt_knots,
             ig_prime=win.ig_prime.to(dev), alpha=win.alpha.to(dev)))
     return shards
@@ -71,22 +78,26 @@ def make_sharded_pano_objective(devices, win: List[PanoWindow], pano: EquirectCa
                                 order: int, blur_sigma: float, measure: int):
     """(f, value_and_grad) over flattened knot increments R^{3K}, equal to
     warp_pano.make_pano_objective's on the unsharded window but with the
-    warp and vote of each shard of ``win`` (from shard_window_events) on its
-    device and one sum of the partial images on ``devices[0]``. f takes (3K,)
-    or a (M, 3K) batch of candidates."""
+    spline, warp and vote of each shard of ``win`` (from
+    shard_window_events) on its device, through warp_pano.pano_vote with
+    the shard's spline basis (computed here, once), and one sum of the
+    partial images on ``devices[0]``. f takes (3K,) or a (M, 3K) batch of
+    candidates."""
     devices = resolve_devices(devices)
     if len(win) != len(devices) or any(
             w.weights.device != d for w, d in zip(win, devices)):
         raise ValueError("win must be shard_window_events(window, devices)")
     K = win[0].knots.shape[0]
     home = win[0]
+    hw = (pano.height, pano.width)
+    bases = [spline.segment_basis(w.batch_times, w.t0, w.dt_knots, K, order) for w in win]
 
     def f(flat_drotv):
         drotv = flat_drotv.reshape(*flat_drotv.shape[:-1], K, 3)
         il = None
-        for shard, dev in zip(win, devices):
-            px, py = warp_pano.warp_to_pano(drotv.to(dev), shard, pano, order)
-            part = vote(px, py, shard.weights, pano.height, pano.width).to(devices[0])
+        for shard, dev, basis in zip(win, devices, bases):
+            part = warp_pano.pano_vote(drotv.to(dev), shard, pano, order, hw, None,
+                                       basis).to(devices[0])
             il = part if il is None else il + part
         image = gaussian_blur(il + home.alpha * home.ig_prime, blur_sigma)
         return -contrast(image, measure)

@@ -29,24 +29,39 @@ _PROBE = textwrap.dedent("""
     # modules that read those formats import them only when asked to.
     for name in ("jax", "jaxlib", "cmax_slam_tpu", "yaml", "h5py"):
         sys.modules[name] = None
+    # No compiler may start while the modules are imported.
+    import subprocess
+    started = []
+    popen = subprocess.Popen
+    def spy(args, *a, **kw):
+        started.append([str(x) for x in args])
+        return popen(args, *a, **kw)
+    subprocess.Popen = spy
     import cmax_slam_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(cmax_slam_tpu_torch.__path__,
                                                    "cmax_slam_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    from cmax_slam_tpu_torch.io import native
     from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_pano_vote
     build_dir = cuda_iwe.BUILD_DIR
-    built = sorted(p.name for p in build_dir.glob("*")) if build_dir.exists() else []
-    print(json.dumps({"preloaded": preloaded, "names": names,
-                      "lib": bool(cuda_iwe._loaded or cuda_pano_vote._loaded),
+    built = sorted(p.name for p in build_dir.glob("*.so")) if build_dir.exists() else []
+    print(json.dumps({"preloaded": preloaded, "names": names, "started": started,
+                      "lib": bool(cuda_iwe._loaded or cuda_pano_vote._loaded or native._loaded),
                       "launches": cuda_iwe.LAUNCHES, "built": built}))
 """)
 
 
 def test_importing_every_module_needs_no_jax_and_builds_nothing(tmp_path):
+    from cmax_slam_tpu_torch.io import native
+
+    # The host library is built by the first test that pushes events, maybe
+    # in another worker while this probe runs: it is built here first, so
+    # the libraries listed before and after can differ only by the probe.
+    assert native.available()
     env = dict(os.environ, PYTHONPATH=REPO)
     build_dir = os.path.join(REPO, "cmax_slam_tpu_torch", "_build")
-    before = sorted(os.listdir(build_dir)) if os.path.isdir(build_dir) else []
+    before = sorted(f for f in os.listdir(build_dir) if f.endswith(".so"))
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -61,7 +76,7 @@ def test_importing_every_module_needs_no_jax_and_builds_nothing(tmp_path):
         "utils.image", "parallel", "parallel.sharding", "parallel.batched",
         "parallel.window_shard", "parallel.replay")}
     assert expected <= set(res["names"])
-    assert not res["preloaded"]
+    assert not res["preloaded"] and res["started"] == []
     assert not res["lib"] and res["launches"] == {
         "fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0, "jvp": 0,
         "jvp_S": 0, "pano_fwd": 0, "pano_fwd_o2": 0, "pano_fwd_o4": 0, "pano_bwd": 0,

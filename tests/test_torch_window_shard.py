@@ -5,7 +5,10 @@ the cases of tests/test_window_shard.py.
 
 Tolerances (those of tests/test_window_shard.py): value rtol 2e-5, gradient
 rtol 2e-3 and atol 2e-6. The sum of eight partial vote images and the
-packages' different float32 summation orders stay well inside them.
+packages' different float32 summation orders stay well inside them. Against
+the port's own single-device objective, which runs the same spline, warp and
+vote (warp_pano.pano_vote) on the whole window, only the eight partial
+images' sum order differs: value rtol 1e-6.
 """
 
 import numpy as np
@@ -17,7 +20,8 @@ from cmax_slam_tpu.calib import EquirectCamera as JEquirectCamera
 from cmax_slam_tpu.ops import warp_pano as jwarp_pano
 from cmax_slam_tpu_torch.calib import EquirectCamera
 from cmax_slam_tpu_torch.config import OptimOptions
-from cmax_slam_tpu_torch.ops import optim
+from cmax_slam_tpu_torch import spline
+from cmax_slam_tpu_torch.ops import optim, scatter, warp_pano
 from cmax_slam_tpu_torch.parallel.sharding import make_mesh
 from cmax_slam_tpu_torch.parallel.window_shard import (
     make_sharded_pano_objective, shard_window_events)
@@ -54,7 +58,9 @@ def test_sharded_objective_matches_jax_single_device():
 
 def test_sharded_objective_padding_is_neutral():
     """A batch axis that does NOT divide the device count gets weight-0
-    padding batches; the objective is unchanged."""
+    padding batches; the objective is unchanged. A padding batch's time 0
+    lies in a segment the kernels may index ([0, K - order]), and its
+    events add exactly 0 to the image and the gradient."""
     win, pano = _make_window(n_events=11_700, B=117)  # 117 % 8 != 0
     (f_ref, _), (f_sh, _), shards = _both(win, pano)
     assert {s.batch_times.shape[0] for s in shards} == {15}  # 120 batches / 8
@@ -64,6 +70,64 @@ def test_sharded_objective_padding_is_neutral():
     x = np.zeros(3 * win.knots.shape[0], np.float32)
     np.testing.assert_allclose(float(f_sh(torch.tensor(x))), float(f_ref(jnp.asarray(x))),
                                rtol=2e-5)
+    last, K, order = shards[-1], win.knots.shape[0], 2
+    seg, coeff = spline.segment_basis(last.batch_times, last.t0, last.dt_knots, K, order)
+    assert torch.all(last.batch_times[-3:] == 0)
+    assert seg.min() >= 0 and seg.max() <= K - order and torch.isfinite(coeff).all()
+    only_pad = last._replace(weights=last.weights * pad)  # the padding events alone
+    d = torch.full((K, 3), 0.01, requires_grad=True)
+    hw = (pano.height, pano.width)
+    image = warp_pano.pano_vote(d, only_pad, EquirectCamera(width=hw[1], height=hw[0]),
+                                order, hw, None, (seg, coeff))
+    (g,) = torch.autograd.grad((image * torch.rand(hw)).sum(), d)
+    assert torch.all(image == 0) and torch.all(g == 0)
+
+
+def test_sharded_objective_votes_each_shard_through_pano_vote(monkeypatch):
+    """Every evaluation votes each shard once through warp_pano.pano_vote
+    (K4/K5 on the card) with the shard's spline basis, computed when the
+    objective is made, and never through scatter.vote (the composed route);
+    the value equals the port's own single-device objective (rtol 1e-6), for
+    one candidate and a (M, 3K) batch, with padding batches."""
+    win_j, pano_j = _make_window(n_events=11_700, B=117)
+    win = _to_torch(win_j)
+    pano = EquirectCamera(width=pano_j.width, height=pano_j.height)
+    shards = shard_window_events(win, DEVICES)
+    bases, votes = [], []
+    segment_basis, pano_vote = spline.segment_basis, warp_pano.pano_vote
+
+    def count_basis(*a, **kw):
+        bases.append(a[0].shape)
+        return segment_basis(*a, **kw)
+
+    def count_vote(drotv, w, pano_, order, hw, origin, basis):
+        assert basis is not None and origin is None
+        votes.append((drotv.shape[:-2], w.weights.shape[0]))
+        return pano_vote(drotv, w, pano_, order, hw, origin, basis)
+
+    def composed(*a, **kw):
+        raise AssertionError("the sharded objective took the composed route")
+
+    monkeypatch.setattr(spline, "segment_basis", count_basis)
+    monkeypatch.setattr(warp_pano, "pano_vote", count_vote)
+    monkeypatch.setattr(scatter, "vote", composed)
+    monkeypatch.setattr(warp_pano, "vote", composed)
+    f_sh, vg_sh = make_sharded_pano_objective(DEVICES, shards, pano, 2, 1.0, 0)
+    assert bases == [(15,)] * 8
+    K = win.knots.shape[0]
+    x = torch.tensor(0.01 * np.random.default_rng(3).normal(size=3 * K).astype(np.float32))
+    xs = torch.stack([x, 0 * x, 2 * x])
+    v_sh, g_sh = vg_sh(x)
+    m_sh = f_sh(xs)
+    assert bases == [(15,)] * 8
+    assert votes == [((), 1500)] * 8 + [((3,), 1500)] * 8  # value_and_grad, then f
+    assert not any(a.device.type != "cpu" for a in (v_sh, g_sh, m_sh))
+    monkeypatch.undo()
+    f_ref, vg_ref = warp_pano.make_pano_objective(win, pano, 2, 1.0, 0)
+    v_ref, g_ref = vg_ref(x)
+    np.testing.assert_allclose(float(v_sh), float(v_ref), rtol=1e-6)
+    np.testing.assert_allclose(m_sh.numpy(), f_ref(xs).numpy(), rtol=1e-6)
+    np.testing.assert_allclose(g_sh.numpy(), g_ref.numpy(), rtol=2e-3, atol=2e-6)
 
 
 def test_sharded_objective_padding_big_pano():

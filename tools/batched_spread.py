@@ -109,7 +109,7 @@ def repro(runs: int, out_dir: str, device: str = "cuda", duration: float = 2.0,
     ev, omega, calib = chip_smoke.make_stream(duration)
     cfg = ijrr_config().frontend
     cam = chip_smoke._cam(calib)
-    _, _, seq_log, _, _ = chip_smoke.run_system(device, duration=duration)
+    seq_log = chip_smoke.run_system(device, duration=duration)[2]
     pb = batched.cut_packets(ev.xs, ev.ys, ev.ts, bearing_lut(calib), cam, cfg, device=device)
     seq = dict(zip(np.round(seq_log[:, 0], 9), seq_log[:, 1:]))
     record = {"card": chip_smoke.card_line() if device == "cuda" else device,
@@ -172,7 +172,7 @@ def main() -> int:
     for i in range(args.runs):
         cuda_iwe.P_MAX_BANDS = args.max_bands[i % len(args.max_bands)]
         print(f"run {i} P_MAX_BANDS={cuda_iwe.P_MAX_BANDS}", flush=True)
-        _, checks = chip_smoke.run_batched()
+        _, checks, _ = chip_smoke.run_batched()
         if not all(checks.values()):
             print(f"run {i}: phase 6 checks failed: {checks}", flush=True)
     return 0

@@ -17,19 +17,15 @@ body's nodes. The bodies, each in the tree's cheapest form of its gate:
   a segment of its own (one more child-graph node, the same kernels);
 - ``check``: chip_smoke's loop check body (a float register counted down,
   its gate, and an IF node on every third value that runs one kernel);
-- ``empty_unfolded`` (trees with device_loop.Gate only): ``empty`` with its
-  gate written as LaneCG's gates were before they were folded into the
-  predicate, ``mask & (counter < limit)`` into a bool buffer (two kernels).
+- ``empty_unfolded``: ``empty`` with its gate written as LaneCG's gates
+  were before they were folded into the predicate, ``mask & (counter <
+  limit)`` into a bool buffer (two kernels).
 
-A tree from before ``device_loop.Gate`` (whose predicate read an int32
-flag) writes every gate with its ``set_flag`` (a reduction and a
-cast-copy kernel), so that ``chip_smoke.py --parent`` can time such a tree
-in turns with this one.
+The tree must have ``device_loop.Gate`` and ``Program.items``.
 
 chip_smoke.py imports ``iteration_nodes`` to count the nodes of one CG
 iteration of a captured program (the innermost WHILE loop that holds
-another) from the statement tree the program keeps (``Program.items``);
-``keep_items`` makes a tree from before that attribute keep it too.
+another) from the statement tree the program keeps (``Program.items``).
 """
 
 from __future__ import annotations
@@ -38,24 +34,6 @@ import argparse
 import json
 import os
 import sys
-
-
-def keep_items(device_loop) -> None:
-    """In a tree whose Program does not keep its statement tree (from before
-    ``Program.items``), wrap Program._assemble so that each program keeps
-    it in ``items``; a tree that keeps it is left as it is. Called only in a
-    process of its own (this tool's, or chip_smoke's phase-4 turns)."""
-    prog_cls = device_loop.Program
-    if hasattr(prog_cls, "items"):
-        return
-    orig = prog_cls._assemble
-
-    def assemble(self, lib, graph, items):
-        if "items" not in self.__dict__:
-            self.items = items
-        return orig(self, lib, graph, items)
-
-    prog_cls._assemble = assemble
 
 
 def _count(device_loop, prog, items) -> dict:
@@ -117,32 +95,18 @@ def _cases(device_loop, n_it: int) -> dict:
     x, reg, hits = (torch.zeros(1, device=dev) for _ in range(3))
     lim = torch.full((1,), n_it, dtype=torch.int32, device=dev)
     start = torch.tensor([float(n_it)], device=dev)
-    folded = hasattr(device_loop, "Gate")
-    if folded:
-        ones = torch.ones(1, dtype=torch.bool, device=dev)
-        counted = device_loop.Gate(ones, n, lim)  # the predicate reads n < lim
-        go, third, loose = (device_loop.gate(dev) for _ in range(3))
+    ones = torch.ones(1, dtype=torch.bool, device=dev)
+    counted = device_loop.Gate(ones, n, lim)  # the predicate reads n < lim
+    go, third, loose = (device_loop.gate(dev) for _ in range(3))
 
-        def gate_n():
-            pass
+    def gate_n():
+        pass
 
-        def gate_reg():
-            torch.gt(reg, 0, out=go)
+    def gate_reg():
+        torch.gt(reg, 0, out=go)
 
-        def gate_third():
-            torch.eq(torch.remainder(reg, 3.0), 0, out=third)
-    else:
-        go, third = device_loop.flag(dev), device_loop.flag(dev)
-        counted = go
-
-        def gate_n():
-            device_loop.set_flag(go, n < lim)
-
-        def gate_reg():
-            device_loop.set_flag(go, reg > 0)
-
-        def gate_third():
-            device_loop.set_flag(third, torch.remainder(reg, 3.0) == 0)
+    def gate_third():
+        torch.eq(torch.remainder(reg, 3.0), 0, out=third)
 
     def reset():
         n.zero_()
@@ -186,16 +150,15 @@ def _cases(device_loop, n_it: int) -> dict:
              "one_kernel": (begin(gate_n), counted, lambda b: b.seg(one), counted_ok),
              "one_kernel_two_segments": (begin(gate_n), counted, two_segments, counted_ok),
              "check": (begin(gate_reg), go, check_body, check_ok)}
-    if folded:
-        def gate_loose():
-            torch.logical_and(ones, torch.lt(n, lim), out=loose)
+    def gate_loose():
+        torch.logical_and(ones, torch.lt(n, lim), out=loose)
 
-        def advance_loose():
-            n.add_(1)
-            gate_loose()
+    def advance_loose():
+        n.add_(1)
+        gate_loose()
 
-        cases["empty_unfolded"] = (begin(gate_loose), loose, lambda b: b.seg(advance_loose),
-                                   counted_ok)
+    cases["empty_unfolded"] = (begin(gate_loose), loose, lambda b: b.seg(advance_loose),
+                               counted_ok)
     return cases, (n, reg, hits)
 
 
@@ -205,9 +168,8 @@ def bodies(device_loop, n_it: int = 1000, reps: int = 5) -> dict:
     each segment's child node and nodes, and the in-body predicate)."""
     import torch
 
-    keep_items(device_loop)
     cases, (n, reg, hits) = _cases(device_loop, n_it)
-    out = {"folded_gates": hasattr(device_loop, "Gate")}
+    out = {}
     for name, (init, gate, body, ok) in cases.items():
         def build(b, init=init, gate=gate, body=body):
             b.seg(init)
