@@ -152,7 +152,37 @@ Phases, in order; any failure exits non-zero:
    and K1/K2 not, value_and_grad timed in turns (sharded,
    single-device, single-device, sharded); then the 2-segment replay
    (overlap 0.4 s) on the stock preset, stitched RMS < 0.5 deg, its two
-   live segments on distinct pool entries.
+   live segments on distinct pool entries;
+8. ecrot: the JAX package's ECRot-real presets at full width
+   (run_ecrot_phase). First the pool's entries and bytes held by the ijrr
+   phases (program_pool.stats); then on examples/tpu_ecrot_realtime_check.py's
+   stream (make_ecrot_stream: 640x480, 5 Mev/s, 1.2 s, 6 000 000 events,
+   pushed in 0.1 s chunks; its generation time printed and kept out of
+   every wall): (a) the stock ecrot_real_config() (200 000-event packets
+   from a 2^22-event device ring that wraps, non-overlapping 0.2 s windows
+   of up to 2^20 events on a 2048x4096 panorama) with phase 4's spies and
+   gates: BA in at least 5 of the 6 windows, events cut only past the
+   window cap and as the reference cuts them, RMS < 0.3 deg, K1, K2, K4,
+   K5 and the loop predicate launched, no front-end wait, the back-end's
+   waits bounded, no synchronizing call outside captures; then K4 and K5
+   on the last crop window that run solved, its own operands (about
+   1 048 600 events, the crop it picked, order 2), against the plain
+   version as phase 3 holds them (shape "ecrot_crop"); (b) a second
+   system of the configuration on the first 0.6 s, which must capture no
+   graph (the warm realtime factor); (c) ecrot_mount_config()
+   (y_angle_deg = -90) with the reference's live-mode shedding (ECROT_SHED:
+   10x front-end and 5x back-end decimation, 20 000-event packets) on the
+   same stream: phase 4's gates, BA in at least 5 windows, the front-end's
+   events the raw count over 10. Each run prints its wall and realtime
+   factor, the frontend.solve/backend.fetch/backend.solve timers, the
+   windows and their events before and after the in-batch decimation, the
+   crop shapes and each objective's blur path (band matmuls or
+   shift-and-add), K1/K2 launches by variant, K4/K5 launches, predicate
+   executions, captures, waits by kind and site, peak device memory, the
+   pool's entries, bytes and drops, and the RMS against the truth both
+   ways. Phase 3 also holds K1 and K2 at this preset's packet shapes
+   (ecrot_sweep: 9 rungs x 200 000 events, ecrot_packet: 1 x 200 000, on
+   480x640).
 
 With ``--parent DIR`` (an unpacked checkout of another commit) phase 3
 also builds the parent's csrc/iwe.cu and, where it differs from this
@@ -170,8 +200,8 @@ programs take at least K fewer per gate than the parent's.
 Before the last line it prints one JSON object with every kernel's route,
 source, launches on each path (the system runs of phase 4, its derivative
 images, the small ring, the cubic system, the resume pair, the CLI run of
-phase 5, the second batched call of phase 6 and the window and replay runs
-of phase 7, each counted from 0), error, times and bound, and the same per
+phase 5, the second batched call of phase 6, the window and replay runs
+of phase 7 and the three runs of phase 8, each counted from 0), error, times and bound, and the same per
 variant (K1: G, P), with K1's launches on the system path by shape bucket;
 K3's launches are those of the derivative-images path; K4's and K5's by
 path, spline order and shape, K4's with the captured crop evaluation's
@@ -219,6 +249,10 @@ SHAPES = (
     # value-and-grad.
     ("lanes", 2016, 10_000, 180, 240, ("fwd",), (2016, 224)),
     ("lanegrad", 224, 10_000, 180, 240, ("fwd", "bwd"), (224, 224)),
+    # The ecrot_real preset's front-end (the ecrot phase): 200 000-event
+    # packets on the 640x480 camera, the rung sweep and the value-and-grad.
+    ("ecrot_sweep", 9, 200_000, 480, 640, ("fwd",), (9, 1)),
+    ("ecrot_packet", 1, 200_000, 480, 640, ("fwd", "bwd"), (1, 1)),
 )
 # The shape whose times go into the JSON line, per kernel: its widest
 # launch on the paths, the batched tracker's.
@@ -1062,175 +1096,187 @@ def check_pano_vote(rng, floor_ms: float) -> dict:
     the composed route's (warp_to_pano in torch, K1/K2) times. No one
     PyTorch call computes the function (library_ms null). Returns per
     kernel its numbers per shape (this tree's at the top level of each
-    shape, each tree's under "designs") and the max error."""
-    import torch
-    from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_pano_vote, warp_pano
-
-    trees = ["this"] + (["parent"] if PARENT is not None else [])
+    shape, each tree's under "designs") and the max error. The ecrot
+    phase adds its crop window's shape (pano_check)."""
     out = {k: {"max_abs_err": 0.0, "by_shape": {}} for k in ("pano_fwd", "pano_bwd")}
     for tag, order, M, span, n_events, image in PANO_SHAPES:
-        win, pano, basis, origin, hw = pano_case(order, span, n_events, image)
-        K, B, N = win.knots.shape[0], win.batch_times.shape[0], win.weights.shape[0]
-        ebs = N // B
-        live = int((win.weights != 0).sum())
-        delta = torch.tensor(rng.normal(size=(M, K, 3)) * 2e-3, dtype=torch.float32,
-                             device="cuda")
-        if M > 1:
-            delta[0] = 0.0  # the zero increment: exp's small-angle branch at every knot
-        args = (win, pano, order, hw, origin, basis)
-        ref = warp_pano.pano_vote_plain(delta, *args)
-        tol = 1e-5 * max(1.0, float(ref.abs().max()))
-        g = torch.tensor(rng.normal(size=(M, *hw)), dtype=torch.float32, device="cuda")
-        d = delta.clone().requires_grad_(True)
-        g_ref = torch.autograd.grad(warp_pano.pano_vote_plain(d, *args), d, g)[0]
-        scale = float(g_ref.abs().max())
-        g_tol = 2e-3 * scale + 2e-6
-        frozen = win.free_mask == 0
-
-        def held(img, dd):
-            diff = (img - ref).abs()
-            err, parted = float(diff.max()), int((diff > tol).sum())
-            g_err = float((dd - g_ref).abs().max())
-            frozen_zero = not bool(dd[:, frozen].any())
-            ok = (img.shape == ref.shape and bool(torch.isfinite(img).all()) and err <= tol
-                  and bool(torch.isfinite(dd).all()) and g_err <= g_tol and frozen_zero)
-            return {"max_abs_err": err, "pixels_past_tol": parted, "g_max_abs_err": g_err,
-                    "frozen_knot_zero": frozen_zero, "ok": ok}
-
-        # The route: warp_pano.pano_vote and autograd.
-        d = delta.clone().requires_grad_(True)
-        got = warp_pano.pano_vote(d, *args)
-        route = held(got.detach(), torch.autograd.grad(got, d, g)[0])
-        ops = cuda_pano_vote.prepare(delta, win, basis, pano, order, origin)
-        sms = cuda_iwe.device_attrs(delta.device)[0]
-        plan = {"this": {"fwd": cuda_pano_vote.fwd_events(ebs, M * N, sms),
-                         "bwd": cuda_pano_vote.bwd_events(ebs)}}
-        if PARENT is not None:
-            plan["parent"] = {"fwd": PARENT.fwd_batches(ebs), "bwd": PARENT.bwd_batches(B)}
-        per, timed = {}, {}
-        for tree in trees:
-            img = torch.zeros((M, *hw), device="cuda")
-            dd = [torch.empty_like(ops.delta) for _ in range(2)]
-            if tree == "this":
-                part, counter = cuda_pano_vote.bwd_scratch(ops), None
-
-                def fwd(img=img):
-                    cuda_pano_vote.launch_fwd(ops, img, *hw)
-
-                def bwd(x, part=part):
-                    cuda_pano_vote.launch_bwd(ops, g, part, x)
-            else:
-                part, counter = PARENT.scratch(ops)
-
-                def fwd(img=img):
-                    PARENT.launch_fwd(ops, img, *hw)
-
-                def bwd(x, part=part, counter=counter):
-                    counter.zero_()
-                    PARENT.launch_bwd(ops, g, part, counter, x)
-            fwd()
-            for x in dd:  # twice on the same inputs: deterministic
-                bwd(x)
-            torch.cuda.synchronize()
-            per[tree] = held(img, dd[0]) | {"k5_repeat_equal": bool(torch.equal(*dd))}
-
-            def k4(fill=True, img=img, fwd=fwd):
-                if fill:
-                    img.zero_()
-                fwd()
-
-            timed[tree] = {"K4": k4, "K4_alone": lambda k4=k4: k4(False),
-                           "K5": lambda bwd=bwd, x=dd[0]: bwd(x)}
-            if counter is not None:
-                timed["fills"] = {"counter_fill": counter.zero_}
-        timed.setdefault("fills", {})["fill"] = img.zero_
-        dev_t = {tree: {v: [] for v in fns} for tree, fns in timed.items()}
-        turns = trees[::-1] + trees  # parent, this, this, parent
-        for v in ("K4", "K5", "K4_alone"):
-            for tree in turns:
-                dev_t[tree][v].append(device_ms(timed[tree][v])[0])
-        for v, fn in timed["fills"].items():
-            dev_t["fills"][v] += [device_ms(fn)[0] for _ in range(2)]
-        d = delta.clone().requires_grad_(True)
-        plain_img = warp_pano.pano_vote_plain(d, *args)
-        ms = {
-            "pano_fwd": _time_ms(lambda: warp_pano.pano_vote(delta, *args)),
-            "pano_bwd": _time_ms(lambda: cuda_pano_vote.pano_vote_bwd(ops, g)),
-            "plain_fwd": _time_ms(lambda: warp_pano.pano_vote_plain(delta, *args)),
-            "plain_bwd": _time_ms(lambda: torch.autograd.grad(plain_img, d, g,
-                                                              retain_graph=True)),
-            "composed_fwd": _time_ms(lambda: warp_pano.pano_vote_composed(delta, *args)),
-        }
-        routes = {"fused": warp_pano.pano_vote, "composed": warp_pano.pano_vote_composed,
-                  "plain": warp_pano.pano_vote_plain}
-        for name, images in routes.items():
-            def fwd_bwd(images=images):
-                dl = delta.clone().requires_grad_(True)
-                torch.autograd.grad(images(dl, *args), dl, g)
-            ms[f"{name}_fwd_bwd"] = _time_ms(fwd_bwd)
-        del plain_img, d
-        ok = route["ok"] and all(v["ok"] and v["k5_repeat_equal"] for v in per.values())
-        fills = {v: float(np.mean(t)) for v, t in dev_t["fills"].items()}
-        entry = {"order": order, "M": M, "events": N, "live_events": live, "batches": B,
-                 "knots": K, "image": list(image), "tol": tol, "g_tol": g_tol, "g_scale": scale,
-                 "floor_ms": floor_ms, "fill_ms": fills["fill"],
-                 "counter_fill_ms": fills.get("counter_fill"), "ms": ms}
-        for k, key in (("pano_fwd", "K4"), ("pano_bwd", "K5")):
-            bd = pano_bound(k, M, N, live, B, K, order, *hw)
-            by_tree = {
-                tree: {"device_ms": float(np.mean(dev_t[tree][key])),
-                       "device_ms_turns": dev_t[tree][key],
-                       "share": bd["bound_ms"] / float(np.mean(dev_t[tree][key])),
-                       "per_block": plan[tree]["fwd" if k == "pano_fwd" else "bwd"]}
-                | ({"alone_ms": float(np.mean(dev_t[tree]["K4_alone"])),
-                    "alone_ms_turns": dev_t[tree]["K4_alone"]} if k == "pano_fwd" else {})
-                | {x: per[tree][x] for x in ("max_abs_err", "pixels_past_tol", "g_max_abs_err",
-                                             "frozen_knot_zero", "k5_repeat_equal")}
-                for tree in trees}
-            e = entry | bd | by_tree["this"] | {
-                "route_max_abs_err": route["max_abs_err"],
-                "route_pixels_past_tol": route["pixels_past_tol"],
-                "route_g_max_abs_err": route["g_max_abs_err"], "wrapper_ms": ms[k],
-                "plain_ms": ms["plain_fwd" if k == "pano_fwd" else "plain_bwd"],
-                "designs": by_tree}
-            out[k]["by_shape"][tag] = e
-            out[k]["max_abs_err"] = max(
-                out[k]["max_abs_err"],
-                *((v["max_abs_err"] if k == "pano_fwd" else v["g_max_abs_err"])
-                  for v in (route, *per.values())))
-
-        def turns_of(tree, v):
-            return "/".join(f"{a * 1e3:.2f}" for a in dev_t[tree][v])
-
-        bf, bb = (out[k]["by_shape"][tag]["bound_ms"] for k in ("pano_fwd", "pano_bwd"))
-        _log(f"pano_vote {tag:8s} order {order} M={M} N={N} ({live} live) B={B} K={K} "
-             f"{image[0]} {hw[0]}x{hw[1]}: route K4 max_abs_err {route['max_abs_err']:.3e} "
-             f"(tol {tol:.3e}, {route['pixels_past_tol']} pixels past it), K5 "
-             f"{route['g_max_abs_err']:.3e} (tol {g_tol:.3e}, scale {scale:.3e}); bound K4 "
-             f"{bf * 1e3:.2f} us, K5 {bb * 1e3:.2f} us "
-             f"({out['pano_fwd']['by_shape'][tag]['bound_by']}); floor {floor_ms * 1e3:.2f} us;"
-             f" fills " + ", ".join(f"{v} {t * 1e3:.2f} us" for v, t in fills.items()))
-        for tree in trees:
-            v = per[tree]
-            _log(f"pano_vote {tag:8s} {tree} (K4 {plan[tree]['fwd']}, K5 {plan[tree]['bwd']} "
-                 f"{'events' if tree == 'this' else 'batches'} a block): K4 err "
-                 f"{v['max_abs_err']:.3e} ({v['pixels_past_tol']} past), K5 err "
-                 f"{v['g_max_abs_err']:.3e}, frozen 0 {v['frozen_knot_zero']}, K5 twice equal "
-                 f"{v['k5_repeat_equal']}; device us in turns K4 with fill "
-                 f"{turns_of(tree, 'K4')} ({bf / np.mean(dev_t[tree]['K4']):.1%} of bound), "
-                 f"alone {turns_of(tree, 'K4_alone')}; K5"
-                 f"{' with counter fill' if tree == 'parent' else ''} {turns_of(tree, 'K5')} "
-                 f"({bb / np.mean(dev_t[tree]['K5']):.1%})")
-        _log(f"pano_vote {tag:8s} ms {json.dumps(ms)}")
-        if not ok:
-            raise AssertionError(f"pano_vote {tag}: route {route}, trees {per}")
-        del got, ref, ops, timed, img, part, counter, dd
+        win, pano, basis, origin, _ = pano_case(order, span, n_events, image)
+        pano_check(out, tag, order, M, win, pano, basis, origin, image, rng, floor_ms)
     for k, v in out.items():
         rep = v["by_shape"][PANO_SHAPES[0][0]]
         v.update(shape=PANO_SHAPES[0][0], ms=rep["wrapper_ms"], device_ms=rep["device_ms"],
                  plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
                  floor_ms=floor_ms)
     return out
+
+
+def pano_check(out: dict, tag: str, order: int, M: int, win, pano, basis, origin, image: tuple,
+               rng, floor_ms: float) -> None:
+    """One shape of check_pano_vote: K4/K5 on the window ``win`` (its spline
+    basis ``basis``; ``origin`` the crop's (x0, y0) on the panorama ``pano``
+    or None for the whole panorama; ``image`` (kind, H, W)) against the
+    plain version, timed, into ``out[kernel]["by_shape"][tag]``. The
+    window's tensors are only read."""
+    import torch
+    from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_pano_vote, warp_pano
+
+    trees = ["this"] + (["parent"] if PARENT is not None else [])
+    hw = tuple(image[1:])
+    K, B, N = win.knots.shape[0], win.batch_times.shape[0], win.weights.shape[0]
+    ebs = N // B
+    live = int((win.weights != 0).sum())
+    delta = torch.tensor(rng.normal(size=(M, K, 3)) * 2e-3, dtype=torch.float32,
+                         device="cuda")
+    if M > 1:
+        delta[0] = 0.0  # the zero increment: exp's small-angle branch at every knot
+    args = (win, pano, order, hw, origin, basis)
+    ref = warp_pano.pano_vote_plain(delta, *args)
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    g = torch.tensor(rng.normal(size=(M, *hw)), dtype=torch.float32, device="cuda")
+    d = delta.clone().requires_grad_(True)
+    g_ref = torch.autograd.grad(warp_pano.pano_vote_plain(d, *args), d, g)[0]
+    scale = float(g_ref.abs().max())
+    g_tol = 2e-3 * scale + 2e-6
+    frozen = win.free_mask == 0
+
+    def held(img, dd):
+        diff = (img - ref).abs()
+        err, parted = float(diff.max()), int((diff > tol).sum())
+        g_err = float((dd - g_ref).abs().max())
+        frozen_zero = not bool(dd[:, frozen].any())
+        ok = (img.shape == ref.shape and bool(torch.isfinite(img).all()) and err <= tol
+              and bool(torch.isfinite(dd).all()) and g_err <= g_tol and frozen_zero)
+        return {"max_abs_err": err, "pixels_past_tol": parted, "g_max_abs_err": g_err,
+                "frozen_knot_zero": frozen_zero, "ok": ok}
+
+    # The route: warp_pano.pano_vote and autograd.
+    d = delta.clone().requires_grad_(True)
+    got = warp_pano.pano_vote(d, *args)
+    route = held(got.detach(), torch.autograd.grad(got, d, g)[0])
+    ops = cuda_pano_vote.prepare(delta, win, basis, pano, order, origin)
+    sms = cuda_iwe.device_attrs(delta.device)[0]
+    plan = {"this": {"fwd": cuda_pano_vote.fwd_events(ebs, M * N, sms),
+                     "bwd": cuda_pano_vote.bwd_events(ebs)}}
+    if PARENT is not None:
+        plan["parent"] = {"fwd": PARENT.fwd_batches(ebs), "bwd": PARENT.bwd_batches(B)}
+    per, timed = {}, {}
+    for tree in trees:
+        img = torch.zeros((M, *hw), device="cuda")
+        dd = [torch.empty_like(ops.delta) for _ in range(2)]
+        if tree == "this":
+            part, counter = cuda_pano_vote.bwd_scratch(ops), None
+
+            def fwd(img=img):
+                cuda_pano_vote.launch_fwd(ops, img, *hw)
+
+            def bwd(x, part=part):
+                cuda_pano_vote.launch_bwd(ops, g, part, x)
+        else:
+            part, counter = PARENT.scratch(ops)
+
+            def fwd(img=img):
+                PARENT.launch_fwd(ops, img, *hw)
+
+            def bwd(x, part=part, counter=counter):
+                counter.zero_()
+                PARENT.launch_bwd(ops, g, part, counter, x)
+        fwd()
+        for x in dd:  # twice on the same inputs: deterministic
+            bwd(x)
+        torch.cuda.synchronize()
+        per[tree] = held(img, dd[0]) | {"k5_repeat_equal": bool(torch.equal(*dd))}
+
+        def k4(fill=True, img=img, fwd=fwd):
+            if fill:
+                img.zero_()
+            fwd()
+
+        timed[tree] = {"K4": k4, "K4_alone": lambda k4=k4: k4(False),
+                       "K5": lambda bwd=bwd, x=dd[0]: bwd(x)}
+        if counter is not None:
+            timed["fills"] = {"counter_fill": counter.zero_}
+    timed.setdefault("fills", {})["fill"] = img.zero_
+    dev_t = {tree: {v: [] for v in fns} for tree, fns in timed.items()}
+    turns = trees[::-1] + trees  # parent, this, this, parent
+    for v in ("K4", "K5", "K4_alone"):
+        for tree in turns:
+            dev_t[tree][v].append(device_ms(timed[tree][v])[0])
+    for v, fn in timed["fills"].items():
+        dev_t["fills"][v] += [device_ms(fn)[0] for _ in range(2)]
+    d = delta.clone().requires_grad_(True)
+    plain_img = warp_pano.pano_vote_plain(d, *args)
+    ms = {
+        "pano_fwd": _time_ms(lambda: warp_pano.pano_vote(delta, *args)),
+        "pano_bwd": _time_ms(lambda: cuda_pano_vote.pano_vote_bwd(ops, g)),
+        "plain_fwd": _time_ms(lambda: warp_pano.pano_vote_plain(delta, *args)),
+        "plain_bwd": _time_ms(lambda: torch.autograd.grad(plain_img, d, g,
+                                                          retain_graph=True)),
+        "composed_fwd": _time_ms(lambda: warp_pano.pano_vote_composed(delta, *args)),
+    }
+    routes = {"fused": warp_pano.pano_vote, "composed": warp_pano.pano_vote_composed,
+              "plain": warp_pano.pano_vote_plain}
+    for name, images in routes.items():
+        def fwd_bwd(images=images):
+            dl = delta.clone().requires_grad_(True)
+            torch.autograd.grad(images(dl, *args), dl, g)
+        ms[f"{name}_fwd_bwd"] = _time_ms(fwd_bwd)
+    del plain_img, d
+    ok = route["ok"] and all(v["ok"] and v["k5_repeat_equal"] for v in per.values())
+    fills = {v: float(np.mean(t)) for v, t in dev_t["fills"].items()}
+    entry = {"order": order, "M": M, "events": N, "live_events": live, "batches": B,
+             "knots": K, "image": list(image), "tol": tol, "g_tol": g_tol, "g_scale": scale,
+             "floor_ms": floor_ms, "fill_ms": fills["fill"],
+             "counter_fill_ms": fills.get("counter_fill"), "ms": ms}
+    for k, key in (("pano_fwd", "K4"), ("pano_bwd", "K5")):
+        bd = pano_bound(k, M, N, live, B, K, order, *hw)
+        by_tree = {
+            tree: {"device_ms": float(np.mean(dev_t[tree][key])),
+                   "device_ms_turns": dev_t[tree][key],
+                   "share": bd["bound_ms"] / float(np.mean(dev_t[tree][key])),
+                   "per_block": plan[tree]["fwd" if k == "pano_fwd" else "bwd"]}
+            | ({"alone_ms": float(np.mean(dev_t[tree]["K4_alone"])),
+                "alone_ms_turns": dev_t[tree]["K4_alone"]} if k == "pano_fwd" else {})
+            | {x: per[tree][x] for x in ("max_abs_err", "pixels_past_tol", "g_max_abs_err",
+                                         "frozen_knot_zero", "k5_repeat_equal")}
+            for tree in trees}
+        e = entry | bd | by_tree["this"] | {
+            "route_max_abs_err": route["max_abs_err"],
+            "route_pixels_past_tol": route["pixels_past_tol"],
+            "route_g_max_abs_err": route["g_max_abs_err"], "wrapper_ms": ms[k],
+            "plain_ms": ms["plain_fwd" if k == "pano_fwd" else "plain_bwd"],
+            "designs": by_tree}
+        out[k]["by_shape"][tag] = e
+        out[k]["max_abs_err"] = max(
+            out[k]["max_abs_err"],
+            *((v["max_abs_err"] if k == "pano_fwd" else v["g_max_abs_err"])
+              for v in (route, *per.values())))
+
+    def turns_of(tree, v):
+        return "/".join(f"{a * 1e3:.2f}" for a in dev_t[tree][v])
+
+    bf, bb = (out[k]["by_shape"][tag]["bound_ms"] for k in ("pano_fwd", "pano_bwd"))
+    _log(f"pano_vote {tag:8s} order {order} M={M} N={N} ({live} live) B={B} K={K} "
+         f"{image[0]} {hw[0]}x{hw[1]}: route K4 max_abs_err {route['max_abs_err']:.3e} "
+         f"(tol {tol:.3e}, {route['pixels_past_tol']} pixels past it), K5 "
+         f"{route['g_max_abs_err']:.3e} (tol {g_tol:.3e}, scale {scale:.3e}); bound K4 "
+         f"{bf * 1e3:.2f} us, K5 {bb * 1e3:.2f} us "
+         f"({out['pano_fwd']['by_shape'][tag]['bound_by']}); floor {floor_ms * 1e3:.2f} us;"
+         f" fills " + ", ".join(f"{v} {t * 1e3:.2f} us" for v, t in fills.items()))
+    for tree in trees:
+        v = per[tree]
+        _log(f"pano_vote {tag:8s} {tree} (K4 {plan[tree]['fwd']}, K5 {plan[tree]['bwd']} "
+             f"{'events' if tree == 'this' else 'batches'} a block): K4 err "
+             f"{v['max_abs_err']:.3e} ({v['pixels_past_tol']} past), K5 err "
+             f"{v['g_max_abs_err']:.3e}, frozen 0 {v['frozen_knot_zero']}, K5 twice equal "
+             f"{v['k5_repeat_equal']}; device us in turns K4 with fill "
+             f"{turns_of(tree, 'K4')} ({bf / np.mean(dev_t[tree]['K4']):.1%} of bound), "
+             f"alone {turns_of(tree, 'K4_alone')}; K5"
+             f"{' with counter fill' if tree == 'parent' else ''} {turns_of(tree, 'K5')} "
+             f"({bb / np.mean(dev_t[tree]['K5']):.1%})")
+    _log(f"pano_vote {tag:8s} ms {json.dumps(ms)}")
+    if not ok:
+        raise AssertionError(f"pano_vote {tag}: route {route}, trees {per}")
+    del got, ref, ops, timed, img, part, counter, dd
 
 
 def _rot_fn(omega):
@@ -1617,21 +1663,40 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
     ``shapes``, if given, is filled with the run's K1 launches by shape
     bucket (``_spy_fwd_shapes``); ``audit`` counts the host's waits in the
     push loop (SyncAudit)."""
-    import torch
     from cmax_slam_tpu_torch.config import ijrr_config, replace
-    from cmax_slam_tpu_torch.ops import cuda_iwe
-    from cmax_slam_tpu_torch.system import CMaxSLAM
 
     overrides = dict(overrides or {})
     t0 = time.perf_counter()
     ev, omega, calib = make_stream(duration)
-    n = len(ev.ts)
-    _log(f"{label}: {n} events over {duration} s ({time.perf_counter() - t0:.1f} s to "
+    _log(f"{label}: {len(ev.ts)} events over {duration} s ({time.perf_counter() - t0:.1f} s to "
          f"generate), overrides {overrides}")
     cfg = replace(ijrr_config(), **overrides)
+    launches, checks, log, wall, slam, graphs = drive(
+        cfg, ev, omega, calib, device, label, duration, len(ev.ts), PUSH_EVENTS, shapes,
+        audit, pano_shapes)
+    n_ba = sum(w.ran_ba for w in slam.window_results())
+    checks[">= 15 BA windows"] = n_ba >= 15
+    checks["spline order"] = (
+        slam.backend.traj.order == (4 if overrides.get(CUBIC_KEY) == 3 else 2))
+    return launches, checks, log, wall, slam, graphs
+
+
+def drive(cfg, ev, omega, calib, device: str, label: str, duration: float, n: int,
+          push: int, shapes: dict | None = None, audit: bool = False,
+          pano_shapes: dict | None = None, spy=None):
+    """One CMaxSLAM of ``cfg`` fed the first ``n`` events of the stream
+    ``ev`` (true angular velocity ``omega``; ``duration`` s of it) through
+    push_events in pushes of ``push`` events, with the packet, step, shape,
+    sync and scan spies of phase 4; ``spy(slam)``, if given, is called
+    before the run and returns a function called after it. Returns what
+    run_system returns, the checks common to every preset's run."""
+    import torch
+    from cmax_slam_tpu_torch.system import CMaxSLAM
+
     slam = CMaxSLAM(calib, cfg, device=device)
     tally = _spy_packets(slam.frontend)
     returned = _spy_steps(slam.backend)
+    after = spy(slam) if spy is not None else (lambda: None)
     pano = cfg.backend.pano_map
     restore = (_spy_fwd_shapes(shapes, (calib.height, calib.width),
                                (pano.pano_height, pano.pano_width), pano_shapes)
@@ -1646,7 +1711,7 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
     t0 = time.perf_counter()
     try:
         with sync_audit, scans:
-            _push(slam, ev, 0, n)
+            _push(slam, ev, 0, n, push)
         loop = dict(slam.metrics.counters)  # the push loop's counts alone
         loop["windows_completed"] = len(slam.backend.results)
         tail = slam.backend.flush()
@@ -1656,16 +1721,18 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
     finally:
         restore()
     wall = time.perf_counter() - t0 - tally["s"]
+    after()
     _read_spy(tally)
     launches = _launches()
     graphs = _graph_stats(slam, device, loop, sync_audit)
     graphs["scan"] = scan = scans.report()
-    pushes = len(range(0, n, PUSH_EVENTS))
+    pushes = len(range(0, n, push))
 
     be = slam.backend
     wins = slam.window_results()
     n_ba = sum(w.ran_ba for w in wins)
     rms, rms_raw = _rms_vs_truth(be.traj, omega)
+    graphs["rms_deg"], graphs["rms_unnormalized_deg"] = rms, rms_raw
     counters = slam.metrics.counters
     timers = {k: round(v.total, 3) for k, v in slam.metrics.timers.items()}
     _log(f"{label}: wall {wall:.2f} s for {duration} s of stream (and {tally['s']:.2f} s "
@@ -1695,10 +1762,8 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
         "every push scanned through the host library": (
             launches["host_scan_triggers"] == scan["calls"] == pushes > 0),
         "library scans equal the plain version's": scan["equal"],
-        ">= 15 BA windows": n_ba >= 15,
         "finite omega log": log.shape[1] == 4 and bool(np.isfinite(log).all()),
         "RMS < 0.3 deg": rms < 0.3,
-        "spline order": be.traj.order == (4 if overrides.get(CUBIC_KEY) == 3 else 2),
         "each window returned once by step/flush": (
             returned + ([tail.index] if tail is not None else []) == [w.index for w in wins]),
     }
@@ -2460,6 +2525,229 @@ def run_replay(devices=("cuda:0", "cuda:0"), duration: float = 2.0):
     return launches, checks
 
 
+# The ecrot phase's stream: examples/tpu_ecrot_realtime_check.py's at its
+# defaults (ECRT_RATE 5e6 events/s, ECRT_DURATION 1.2 s), pushed in 0.1 s
+# chunks as it pushes them. ECROT_SHED is its ECRT_SHED=1: the reference's
+# live-mode shedding (launch/live_davis.launch: 10x front-end and 5x
+# back-end decimation) with packets of a tenth the events, so that a packet
+# spans the same time.
+ECROT_RATE = 5_000_000
+ECROT_DURATION = 1.2
+ECROT_SHED = {"frontend_event_sample_rate": 10, "frontend.num_events_per_packet": 20_000,
+              "backend.warp.event_sample_rate": 5}
+
+
+@functools.lru_cache(maxsize=1)
+def make_ecrot_stream(duration: float = ECROT_DURATION, rate: int = ECROT_RATE):
+    """examples/tpu_ecrot_realtime_check.py's stream: a 640x480 pinhole
+    (fx = fy = 335, centred), omega = [0.5, -0.9, 1.3], 1200 landmarks in
+    the generator's default 120-degree cone, seed 3, ``rate`` events/s for
+    ``duration`` s, through the port's generator with the vectorized
+    rotation (_rot_fn; the random draws are the example's). Returns
+    (events, omega, calib, seconds to generate); cached."""
+    from cmax_slam_tpu_torch.calib import CameraCalibration
+    from cmax_slam_tpu_torch.io import synthetic
+
+    W, H, F = 640, 480, 335.0
+    omega = np.array([0.5, -0.9, 1.3])
+    t0 = time.perf_counter()
+    ev = synthetic.rotating_camera_events(np.random.default_rng(3), int(rate * duration),
+                                          duration, omega, F, F, W / 2, H / 2, W, H,
+                                          n_points=1200, rot_fn=_rot_fn(omega))
+    calib = CameraCalibration(width=W, height=H,
+                              K=np.array([[F, 0, W / 2], [0, F, H / 2], [0, 0, 1.0]]))
+    return ev, omega, calib, time.perf_counter() - t0
+
+
+class ProgramTimes:
+    """Device time of each device program's launches over a block, by
+    program name ("frontend", "backend.crop", "backend.full"): a CUDA event
+    before and after each launch of a program whose graphs were captured
+    before it (a first run, which captures, is not timed). The launches
+    queue on one stream in order, so the events bracket each graph's
+    execution. Times nothing on the CPU."""
+
+    def __init__(self, device: str = "cuda"):
+        self.on, self.marks = device == "cuda", []
+
+    def __enter__(self):
+        if not self.on:
+            return self
+        import torch
+        from cmax_slam_tpu_torch.ops import device_loop
+
+        self._run = run = device_loop.Program.run
+        marks = self.marks
+
+        def timed(prog):
+            if prog._exec is None or prog.device.type != "cuda":
+                return run(prog)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = run(prog)
+            b.record()
+            marks.append((prog.name, a, b))
+            return out
+
+        device_loop.Program.run = timed
+        return self
+
+    def __exit__(self, *exc):
+        if self.on:
+            from cmax_slam_tpu_torch.ops import device_loop
+
+            device_loop.Program.run = self._run
+        return False
+
+    def report(self) -> dict:
+        """{program: {"launches", "ms"}}; waits for the last event."""
+        out = {}
+        if self.marks:
+            self.marks[-1][2].synchronize()
+        for name, a, b in self.marks:
+            t = out.setdefault(name, {"launches": 0, "ms": 0.0})
+            t["launches"] += 1
+            t["ms"] += a.elapsed_time(b)
+        return out
+
+
+def run_ecrot(device: str = "cuda", label: str = "ecrot", shed: bool = False,
+              upto: float | None = None, duration: float = ECROT_DURATION,
+              rate: int = ECROT_RATE, overrides=None, min_ba: int | None = None,
+              no_capture: bool = False, shapes: dict | None = None,
+              pano_shapes: dict | None = None):
+    """A run of the ecrot phase: ecrot_real_config() (``shed``:
+    ecrot_mount_config() with ECROT_SHED), with ``overrides`` (dotted
+    config keys), on the first ``upto`` s (default all) of
+    make_ecrot_stream(duration, rate) in 0.1 s pushes, through ``drive``
+    (phase 4's spies and checks). Also checks: a window's events cut only
+    past max_events_per_window, the loop predicate run, BA in at least
+    ``min_ba`` windows (if given), no graph captured (``no_capture``), and
+    with front-end decimation the front-end's events the raw count over the
+    rate within one per push. Prints the wall, the timers, the windows and
+    their events before and after the in-batch decimation, the crop shapes
+    and the blur path of each objective's image, the launches by kernel and
+    variant, captures, waits, peak memory and the pool's entries, bytes and
+    drops, and the RMS against the truth. Returns (launches, checks, stats,
+    the CMaxSLAM)."""
+    import torch
+    from cmax_slam_tpu_torch.config import ecrot_mount_config, ecrot_real_config, replace
+    from cmax_slam_tpu_torch.ops import blur, program_pool
+
+    cfg = ecrot_mount_config() if shed else ecrot_real_config()
+    cfg = replace(cfg, **{**(ECROT_SHED if shed else {}), **dict(overrides or {})})
+    ev, omega, calib, gen_s = make_ecrot_stream(duration, rate)
+    span = duration if upto is None else upto
+    n = len(ev.ts) if upto is None else int(np.searchsorted(ev.ts, upto))
+    push = rate // 10
+    fe_rate, bcfg = cfg.frontend_event_sample_rate, cfg.backend
+    pano_hw = (bcfg.pano_map.pano_height, bcfg.pano_map.pano_width)
+    _log(f"{label}: {n} events over {span} s of a {calib.width}x{calib.height} stream at "
+         f"{rate} ev/s (generated in {gen_s:.2f} s, outside every wall), pushes of {push}; "
+         f"packets of {cfg.frontend.num_events_per_packet}, decimation front-end {fe_rate} "
+         f"back-end {bcfg.warp.event_sample_rate}, windows {bcfg.sliding_window.time_window_size}/"
+         f"{bcfg.sliding_window.sliding_window_stride} s, panorama {pano_hw[0]}x{pano_hw[1]} at y_angle "
+         f"{bcfg.pano_map.y_angle_deg} deg, max_events_per_window "
+         f"{bcfg.max_events_per_window}; overrides {overrides or {}}")
+    rec = {"frontend_events": 0, "windows": [], "refine": False}
+
+    def spy(slam):
+        fe, be = slam.frontend, slam.backend
+        fe_push, arrays, refine = fe.push_events, be._window_arrays, be.refine_pass
+
+        def pushed(xs, ys, ts, ps):
+            rec["frontend_events"] += len(ts)
+            return fe_push(xs, ys, ts, ps)
+
+        def window_arrays(xs, ys, ts, idx):
+            out = arrays(xs, ys, ts, idx)
+            rec["windows"].append({"events": len(ts), "padded": len(out["valid"]),
+                                   "after_decimation": int(out["valid"].sum()),
+                                   "bootstrap_resolve": rec["refine"]})
+            return out
+
+        def refine_pass(*a, **kw):  # the bootstrap re-solve's windows
+            rec["refine"] = True
+            try:
+                return refine(*a, **kw)
+            finally:
+                rec["refine"] = False
+
+        fe.push_events, be._window_arrays, be.refine_pass = pushed, window_arrays, refine_pass
+
+        def after():
+            del fe.push_events, be._window_arrays, be.refine_pass
+
+        return after
+
+    pool0 = program_pool.stats()
+    with ProgramTimes(device) as times:
+        launches, checks, _, wall, slam, stats = drive(
+            cfg, ev, omega, calib, device, label, span, n, push, shapes, True, pano_shapes, spy)
+    stats["device_ms_by_program"] = device_ms_by_program = times.report()
+    be = slam.backend
+    wins = slam.window_results()
+    n_ba = sum(w.ran_ba for w in wins)
+    counters = slam.metrics.counters
+    pushes = len(range(0, n, push))
+    stats |= {
+        "wall_s": wall, "realtime_factor": span / wall, "stream_s": span, "raw_events": n,
+        "generate_s": gen_s,
+        "timers": {k: {"total_s": t.total, "count": t.count}
+                   for k, t in slam.metrics.timers.items()
+                   if k in ("frontend.solve", "backend.fetch", "backend.solve")},
+        "windows": len(wins), "ba_windows_run": n_ba, "window_events": rec["windows"],
+        "events_dropped_at_cap": counters.get("backend.events_dropped", 0),
+        "frontend_events": rec["frontend_events"],
+        "crop_shapes": sorted(be._crop_shapes),
+        "blur_paths": {f"crop {h}x{w}": blur.blur_path(h, w) for h, w in sorted(be._crop_shapes)}
+        | {f"panorama {pano_hw[0]}x{pano_hw[1]}": blur.blur_path(*pano_hw)},
+        "window_solves": {k: stats["runs"].get(f"backend.{k}", 0) for k in ("crop", "full")},
+        "launches": {k: launches[k] for k in ("fwd_P", "fwd_G", "bwd_S", "bwd_G", "pano_fwd",
+                                              "pano_bwd")},
+        "pool_before": pool0, "pool_after": program_pool.stats(),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else 0.0}
+    _log(f"{label}: wall {wall:.3f} s, realtime factor {span / wall:.4f}; timers "
+         f"{json.dumps(stats['timers'])}; BA in {n_ba} of {len(wins)} windows; events per "
+         f"window (in the window, padded, after the in-batch decimation; the bootstrap "
+         f"re-solve's too) {json.dumps(rec['windows'])}; cut at the cap of "
+         f"{bcfg.max_events_per_window} {stats['events_dropped_at_cap']}; front-end events {rec['frontend_events']} of "
+         f"{n} raw; crop shapes {stats['crop_shapes']}, blur paths "
+         f"{json.dumps(stats['blur_paths'])}, window solves {json.dumps(stats['window_solves'])}")
+    busy = sum(t["ms"] for t in device_ms_by_program.values()) / 1e3
+    _log(f"{label}: device time by program (CUDA events around each launch of a program "
+         f"captured before it; first runs, which capture, not counted) "
+         f"{json.dumps(device_ms_by_program)}: {busy:.3f} s, {busy / wall:.1%} of the wall")
+    _log(f"{label}: launches K1 P/G {launches['fwd_P']}/{launches['fwd_G']}, K2 S/G "
+         f"{launches['bwd_S']}/{launches['bwd_G']}, K4 {launches['pano_fwd']}, K5 "
+         f"{launches['pano_bwd']}, loop predicate {stats['pred']}; captures "
+         f"{json.dumps(stats['captures'])}; waits front-end {stats['frontend_waits']}, back-end "
+         f"{stats['backend_waits']} for {stats['windows_completed_in_loop']} windows completed "
+         f"in the loop and {stats['resolves']} re-solves, event waits by site "
+         f"{json.dumps(stats.get('audit', {}).get('event_waits_by_site'))}; peak device memory "
+         f"{stats['peak_gib']:.3f} GiB; pool before {json.dumps(pool0)}, after "
+         f"{json.dumps(stats['pool_after'])}; RMS against the truth {stats['rms_deg']:.4f} deg "
+         f"({stats['rms_unnormalized_deg']:.4f} unnormalized)")
+    # A window of more events than the cap (rounded up to whole batches)
+    # keeps its first ``cap`` events, as the JAX package's does
+    # (cmax_slam_tpu/backend.py:921-938); the stream's rate varies with the
+    # landmarks in view, so a 0.2 s window may hold more than 2^20 events.
+    bs = bcfg.warp.event_batch_size
+    cap = -(-bcfg.max_events_per_window // bs) * bs
+    checks["events cut only past the cap, as the reference cuts them"] = (
+        stats["events_dropped_at_cap"] == sum(max(0, w["events"] - cap) for w in rec["windows"])
+        and all(w["padded"] <= cap for w in rec["windows"]))
+    checks["loop predicate ran"] = device != "cuda" or stats["pred"] > 0
+    if min_ba is not None:
+        checks[f"BA in >= {min_ba} windows"] = n_ba >= min_ba
+    if no_capture:
+        checks["captures no graph"] = stats["captures"]["graphs"] == 0
+    if fe_rate > 1:
+        checks["front-end events = raw / rate within 1 per push"] = (
+            abs(rec["frontend_events"] - n / fe_rate) <= pushes)
+    return launches, checks, stats, slam
+
+
 GATE_LANES = (1, 24, 2016)  # a packet solve, a stride's lanes, phase 6's widest round
 GATE_PATTERNS = ("first", "middle", "last", "all", "none")  # where the live lanes are
 
@@ -2985,6 +3273,46 @@ print("NODES " + json.dumps(nodes))
 """
 
 
+def run_ecrot_phase(phase, graphs: dict, pano: dict, rng, floor_ms: float) -> dict:
+    """The ecrot phase (after replay): the pool's bytes held by the ijrr
+    phases, then (a) ecrot_real_config() on make_ecrot_stream() with phase
+    4's spies and gates, BA in at least all windows but one; K4/K5 on the
+    crop window it solved last, its own operands, against the plain
+    version as phase 3 holds them (into ``pano``'s shapes as
+    "ecrot_crop"); (b) a second system of the same configuration on the
+    first 0.6 s, which must capture no graph (its wall: the warm realtime
+    factor); (c) ecrot_mount_config() with ECROT_SHED on the same stream.
+    ``phase`` is main's wrapper (pooled programs, pool and peak memory
+    printed, checks required); the runs' stats go into ``graphs``. Returns
+    the launches by path."""
+    from cmax_slam_tpu_torch.ops import program_pool
+
+    _log("ecrot: the pool before the phase (the ijrr phases' entries): "
+         + json.dumps(program_pool.stats(detail=True)))
+    windows = round(ECROT_DURATION / 0.2)
+    buckets, pano_buckets = {}, {}
+    launches, _, graphs["ecrot"], slam = phase(
+        "ecrot", run_ecrot, label="ecrot", min_ba=windows - 1, shapes=buckets,
+        pano_shapes=pano_buckets)
+    graphs["ecrot"] |= {"k1_by_shape": buckets, "pano_by_shape": pano_buckets}
+    _log("ecrot: K1 launches by shape bucket " + json.dumps(buckets) + "; K4/K5 "
+         + json.dumps(pano_buckets))
+    be = slam.backend
+    solver = max((s for key, s in be._entry.programs.items() if key[3] is not None),
+                 key=lambda s: s.win.weights.shape[0])
+    pano_check(pano, "ecrot_crop", be.order, 1, solver.win, be.pano, solver.basis,
+               solver.origin, ("crop", *solver.a_crop.shape), rng, floor_ms)
+    del slam, be, solver
+    out = {"ecrot": launches}
+    for label, kw in (("ecrot_warm", {"upto": ECROT_DURATION / 2, "no_capture": True}),
+                      ("ecrot_mount_shed", {"shed": True, "min_ba": windows - 1})):
+        res = phase(label, run_ecrot, label=label, **kw)
+        out[label], graphs[label] = res[0], res[2]
+        del res  # its system, before the next run
+    _log("ecrot: the pool after the phase: " + json.dumps(program_pool.stats(detail=True)))
+    return out
+
+
 def _pool_snapshot() -> tuple:
     """({id of each pooled program: captured}, {id of each entry: leases})."""
     from cmax_slam_tpu_torch.ops import program_pool
@@ -3172,6 +3500,7 @@ def main() -> int:
     batched_launches, _, batched_calls = phase("batched", run_batched, seq_log=seq_log)
     shard_launches, _, shard_ms = phase("window_shard", run_window_shard)
     replay_launches = phase("replay", run_replay)[0]
+    ecrot_launches = run_ecrot_phase(phase, graphs, pano, rng, kernels["bwd"]["floor_ms"])
     loop_turns = walls = None
     if parent is not None:  # the loop and phase 4's wall against another commit, in turns
         loop_turns = loop_in_turns(parent, card)
@@ -3196,7 +3525,7 @@ def main() -> int:
              "system_host": host_launches, "system_warm": warm_launches,
              "ring_wrap": ring_launches, "cubic": cubic_launches,
              "resume": resume_launches, "cli": cli_launches, "batched": batched_launches,
-             "window_shard": shard_launches, "replay": replay_launches}
+             "window_shard": shard_launches, "replay": replay_launches} | ecrot_launches
 
     def by_path(key):
         return {p: counts[key] for p, counts in paths.items()}
@@ -3221,6 +3550,7 @@ def main() -> int:
                    for tag, s in v["by_shape"].items()}}
         if k == "fwd":
             row["launches_by_shape"] = fwd_buckets  # the system path's K1 launches
+            row["launches_by_shape_ecrot"] = graphs["ecrot"]["k1_by_shape"]
             for tag, s in v["by_shape"].items():
                 row["by_shape"][tag] |= {"fill_ms": s["fill_ms"], "g_alone_ms": s["g_alone_ms"]}
             row["variants"] = {
@@ -3275,6 +3605,8 @@ def main() -> int:
             "launches_in_graphs_by_path": by_path(f"graph_{k}"),
             "launches_by_order_by_path": {o: by_path(f"{k}_o{o}") for o in cuda_pano_vote.ORDERS},
             "launches_by_shape": {b: t for b, t in pano_buckets.items() if b.startswith(k)},
+            "launches_by_shape_ecrot": {b: t for b, t in graphs["ecrot"]["pano_by_shape"].items()
+                                        if b.startswith(k)},
             "max_abs_err": v["max_abs_err"], "ms": v["ms"], "device_ms": v["device_ms"],
             "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None, "floor_ms": v["floor_ms"], "shape": v["shape"],

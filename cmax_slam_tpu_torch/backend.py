@@ -690,12 +690,9 @@ class Backend:
         the prior weight of refine sweeps."""
         key = (win.weights.shape[0], win.batch_times.shape[0], win.knots.shape[0], crop_hw,
                len(fov_rel), self._prior_lam)
-        programs = self._entry.programs
-        if key not in programs:
-            programs[key] = _WindowSolver(self.cfg, self.pano, self.order, self._ba_restarts,
-                                          self._prior_lam, self._entry.state["lut"], win,
-                                          len(fov_rel), crop_hw)
-        return programs[key]
+        return self._entry.program(key, lambda: _WindowSolver(
+            self.cfg, self.pano, self.order, self._ba_restarts, self._prior_lam,
+            self._entry.state["lut"], win, len(fov_rel), crop_hw))
 
     def _run_solver(self, win: PanoWindow, fov_rel, crop_hw=None, consts=None):
         """Load a window into its program and launch it. Returns (the

@@ -119,8 +119,8 @@ class Frontend:
         state = self._entry.state
         if not state:
             state["lut"] = self.lut
-            state["ring"] = (DeviceEventRing(cap, cam.width, device=self.device)
-                             if cap else None)
+            state["ring"] = (self._entry.build(
+                lambda: DeviceEventRing(cap, cam.width, device=self.device)) if cap else None)
         self._ring: Optional[DeviceEventRing] = state["ring"]
 
         self._initialized = False
@@ -399,14 +399,10 @@ class Frontend:
         """The narrowest program of the leased entry with room for ``lanes``
         lanes (16 at first; a wider launch builds a wider one, and the entry
         keeps both)."""
-        programs = self._entry.programs
-        room = [c for c in programs if c >= lanes]
-        if not room:
-            cap = max(16, lanes)
-            programs[cap] = _PacketSolver(self.cfg, self.cam, self._entry.state, self.packet_size,
-                                          self.device, cap)
-            room = [cap]
-        return programs[min(room)]
+        room = [c for c in self._entry.programs if c >= lanes]
+        cap = min(room) if room else max(16, lanes)
+        return self._entry.program(cap, lambda: _PacketSolver(
+            self.cfg, self.cam, self._entry.state, self.packet_size, self.device, cap))
 
     # ------------------------------------------------------------------
     def render_iwe_pair(self, beg: int, end: int, omega) -> Optional[np.ndarray]:

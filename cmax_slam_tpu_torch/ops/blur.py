@@ -78,12 +78,18 @@ def _blur_tensor(size: int, sigma: float, device: str) -> torch.Tensor:
     return to_device(_blur_matrix(size, sigma), device)
 
 
+def blur_path(height: int, width: int) -> str:
+    """The path gaussian_blur takes for a height x width image: "bands" (two
+    band matmuls) or "shift_add"."""
+    return "shift_add" if height * width > SHIFT_ADD_MIN_PIXELS else "bands"
+
+
 def gaussian_blur(image: torch.Tensor, sigma: float) -> torch.Tensor:
     """Blur a (..., H, W) image stack; no-op when sigma <= 0."""
     if sigma <= 0:
         return image
     H, W = image.shape[-2], image.shape[-1]
-    if H * W > SHIFT_ADD_MIN_PIXELS:
+    if blur_path(H, W) == "shift_add":
         return _blur_shift_add(image, float(sigma))
     dev = str(image.device)
     bh = _blur_tensor(H, float(sigma), dev)

@@ -72,7 +72,9 @@ MAX_CONDS = 128          # conditional nodes per program (counter slots)
 
 SOURCE = nvcc.CSRC / "loop.cu"
 _lock = threading.Lock()
-_capture_lock = threading.Lock()  # one capture at a time (the multi-device modes' threads)
+# One capture at a time (the multi-device modes' threads); reentrant, so
+# that a capture's memory guard (Program.capture_guard) may collect.
+_capture_lock = threading.RLock()
 _lib = None
 
 
@@ -268,6 +270,10 @@ class Program:
         self._occurrences: List[tuple] = []  # (capture, counter slot of its conditional)
         self._conds: List[tuple] = []  # (is_while, parent slot)
         self.capture_s = 0.0
+        # Runs the first capture: ``capture_guard(capture)``; the program
+        # pool sets it to account the capture's memory and retry it once
+        # after an out-of-memory error (ops/program_pool.py).
+        self.capture_guard: Callable | None = None
 
     # -- capture --------------------------------------------------------
     def _capture_segment(self, fn: Callable) -> int:
@@ -317,6 +323,9 @@ class Program:
     def _capture(self) -> None:
         lib = build()
         t0 = time.perf_counter()
+        # A capture that failed (out of memory) is retried from scratch.
+        self._graphs, self._seg_index, self._seg_launches = [], {}, []
+        self._occurrences, self._conds = [], []
         self._pool = torch.cuda.graph_pool_handle()
         main = torch.cuda.current_stream(self.device)
         self._side = torch.cuda.Stream(self.device)
@@ -361,7 +370,10 @@ class Program:
                     gc.collect()
                     gc.disable()
                     try:
-                        self._capture()
+                        if self.capture_guard is None:
+                            self._capture()
+                        else:
+                            self.capture_guard(self._capture)
                     finally:
                         if enabled:
                             gc.enable()

@@ -135,10 +135,8 @@ def lane_solver(owner, cam: warp_local.CameraParams, blur_sigma: float, measure:
     device = torch.device(device)
     entry = program_pool.lease(("lanes", program_pool.device_key(device), cam, float(blur_sigma),
                                 int(measure), opt), owner)
-    key = (P, S, rounds)
-    if key not in entry.programs:
-        entry.programs[key] = LaneSolver(P, S, cam, blur_sigma, measure, opt, device, rounds)
-    return entry.programs[key]
+    return entry.program((P, S, rounds),
+                         lambda: LaneSolver(P, S, cam, blur_sigma, measure, opt, device, rounds))
 
 
 def batched_packet_solve(

@@ -18,8 +18,16 @@ rules hold all the same.
     uninterrupted run.
 (e) The replay's concurrent segments lease distinct entries, and a second
     replay, on the entries the first left, stitches the same trajectory.
+(f) Memory: a build or capture that runs out of device memory
+    (torch.cuda.OutOfMemoryError, raised here by a stand-in) drops the free
+    entries of its device, least recently leased first, and succeeds on its
+    one retry; a leased entry is never dropped; a second failure raises,
+    and other errors are not retried; stats() reports the entries' bytes
+    and drops. A system whose window program fails once gives the results
+    of one that never failed.
 """
 
+import gc
 import threading
 
 import numpy as np
@@ -184,3 +192,149 @@ def test_concurrent_replay_segments_lease_distinct_entries():
     assert sorted(map(id, e0)) == sorted(map(id, e1))  # the second replay leased the first's
     np.testing.assert_array_equal(t0, t1)
     np.testing.assert_array_equal(q0, q1)
+
+
+META = torch.device("meta")  # a device of the tests' own: relieve() drops only its entries
+
+
+def _oom_once(value="built", times=1):
+    """A build that raises torch.cuda.OutOfMemoryError ``times`` times,
+    then returns ``value``; ``calls`` counts its calls."""
+    calls = []
+
+    def make():
+        calls.append(1)
+        if len(calls) <= times:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (stand-in)")
+        return value
+
+    return make, calls
+
+
+def _meta_entries():
+    return [e for entries in program_pool.ENTRIES.values() for e in entries if e.device == META]
+
+
+def test_out_of_memory_drops_free_entries_oldest_lease_first():
+    owners = [program_pool.Owner() for _ in range(4)]
+    entries = [program_pool.lease(("oom drop", META, i), o) for i, o in enumerate(owners)]
+    for e in entries:
+        e.state["buf"] = torch.zeros(4)
+        e.programs["p"] = object()
+    # Free entries 2 and 0 (leased before 1 and 3); lease entry 2 again, to
+    # a new owner that is then collected: its last lease is the newest.
+    owners[0] = owners[2] = None
+    again = program_pool.Owner()
+    assert program_pool.lease(("oom drop", META, 2), again) is entries[2]
+    del again
+    free = sorted((e for e in _meta_entries() if e.free), key=lambda e: e.last_lease)
+    assert free[-2:] == [entries[0], entries[2]]
+    dropped0, stats0 = len(program_pool.DROPPED), program_pool.stats()["dropped"]
+    make, calls = _oom_once()
+    assert entries[1].build(make) == "built" and len(calls) == 2
+    assert program_pool.DROPPED[dropped0:] == [(e.key, e.last_lease) for e in free]
+    assert program_pool.stats()["dropped"] == stats0 + len(free)
+    live = _meta_entries()
+    assert entries[1] in live and entries[3] in live
+    assert entries[0] not in live and entries[2] not in live
+    assert not entries[0].programs and not entries[0].state  # released
+    assert entries[1].programs and entries[1].state
+
+
+def test_a_leased_entry_is_never_dropped():
+    owners = [program_pool.Owner() for _ in range(3)]
+    entries = [program_pool.lease(("oom leased", META, i), o) for i, o in enumerate(owners)]
+    program_pool.relieve(META)  # no free entry of this device is left
+    dropped0 = len(program_pool.DROPPED)
+    make, calls = _oom_once()
+    assert entries[0].build(make) == "built" and len(calls) == 2
+    assert program_pool.DROPPED[dropped0:] == []
+    assert all(e in _meta_entries() and not e.free for e in entries)
+
+
+def test_a_second_failure_raises_and_other_errors_are_not_retried():
+    owner = program_pool.Owner()
+    entry = program_pool.lease(("oom twice", META), owner)
+    make, calls = _oom_once(times=2)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        entry.build(make)
+    assert len(calls) == 2
+
+    def broken():
+        calls.append(1)
+        raise ValueError("not a memory error")
+
+    with pytest.raises(ValueError):
+        entry.build(broken)
+    assert len(calls) == 3
+    # An error raised while handling an out-of-memory error (a capture
+    # that ends after failing) counts as one.
+    chained = []
+
+    def capture():
+        chained.append(1)
+        if len(chained) == 1:
+            try:
+                raise torch.cuda.OutOfMemoryError("CUDA out of memory (stand-in)")
+            finally:
+                raise RuntimeError("capture invalidated")
+        return "captured"
+
+    assert entry.build(capture) == "captured" and len(chained) == 2
+
+
+def test_stats_report_bytes_and_drops(stream):
+    slam = _system()
+    fe, be = _entries(slam)
+    ring = slam.frontend._ring
+    assert fe.state_bytes() == ring.capacity * 8 + slam.frontend.lut.untyped_storage().nbytes()
+    _push_range(slam, stream, 0, 10_000)
+    slam.flush()
+    for e in (fe, be):
+        for prog in e.programs.values():  # each first capture runs under the entry's build
+            assert prog.program.capture_guard == e.build
+    stats = program_pool.stats(detail=True)
+    for k in ("state_bytes", "allocated_bytes", "reserved_bytes", "dropped"):
+        assert k in stats
+    assert stats["state_bytes"] >= fe.state_bytes() + be.state_bytes() > 0
+    assert stats["allocated_bytes"] == stats["reserved_bytes"] == 0  # the CPU's allocator
+    kinds = {p["kind"] for p in stats["by_entry"] if p["leased"]}
+    assert {"frontend", "backend"} <= kinds
+    assert len(stats["by_entry"]) == stats["entries"]
+
+
+def test_a_window_program_that_runs_out_of_memory_once(stream, monkeypatch):
+    from cmax_slam_tpu_torch import backend
+    from cmax_slam_tpu_torch.config import replace
+
+    _, ref = _run(stream)
+    cpu = torch.device("cpu")
+    gc.collect()
+    program_pool.relieve(cpu)  # the next system of this configuration builds from nothing
+    other = CMaxSLAM(_calib(), replace(_cfg(), **{"frontend.warp.blur_sigma": 0.9,
+                                                  "backend.warp.blur_sigma": 0.9}),
+                     device="cpu")
+    _push_range(other, stream, 0, N_EVENTS)
+    other.flush()
+    held = _entries(other)
+    assert held[1].programs
+    del other
+    gc.collect()
+    assert all(e.free for e in held)
+    make = backend._WindowSolver
+    fails = []
+
+    def solver(*args, **kw):
+        if not fails:
+            fails.append(1)
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (stand-in)")
+        return make(*args, **kw)
+
+    monkeypatch.setattr(backend, "_WindowSolver", solver)
+    dropped0 = len(program_pool.DROPPED)
+    slam, got = _run(stream)
+    assert fails == [1]
+    assert program_pool.DROPPED[dropped0:] == [
+        (e.key, e.last_lease) for e in sorted(held, key=lambda e: e.last_lease)]
+    assert not held[1].programs and all(e not in held for e in _entries(slam))
+    assert _equal(got, ref)  # the retried build gives the results of one never failed

@@ -58,9 +58,11 @@ SMS, OPTIN = 132, 232_448  # H100 SXM: SMs, cudaDevAttrMaxSharedMemoryPerBlockOp
 # The planner's pick at each shape, with the thresholds measured on an
 # H100 (PERF.md): lanes and lanegrad are wide launches (P); sweep, packet,
 # crop, split and headroom have fewer than P_MIN_IMAGES images (G), and
-# split and 2048x4096 need more bands than P_MAX_BANDS (G).
+# split, the ECRot front-end's 480x640 and 2048x4096 need more bands than
+# P_MAX_BANDS (G).
 EXPECTED = {"sweep": "G", "packet": "G", "crop": "G", "split": "G", "headroom": "G",
-            "lanes": "P", "lanegrad": "P", "pano2048": "G"}
+            "lanes": "P", "lanegrad": "P", "ecrot_sweep": "G", "ecrot_packet": "G",
+            "pano2048": "G"}
 SHAPES = [(tag, b, n, H, W) for tag, b, n, H, W, *_ in chip_smoke.SHAPES] + [
     ("pano2048", 1, 84_700, 2048, 4096)]
 
@@ -442,10 +444,11 @@ def test_objectives_value_and_grad_ask_k2_for_no_dw(rng, monkeypatch, objective)
 
 # The K2 planner's pick at each shape, with the threshold measured on an
 # H100 (PERF.md): lanes and lanegrad are wide launches of front-end images
-# (S); the rest have fewer than S_MIN_IMAGES images (G), and 2048x4096 does
-# not stage whole (G).
+# (S); the rest have fewer than S_MIN_IMAGES images (G), and 480x640 and
+# 2048x4096 do not stage whole (G).
 EXPECTED_BWD = {"sweep": "G", "packet": "G", "crop": "G", "split": "G", "headroom": "G",
-                "lanes": "S", "lanegrad": "S", "pano2048": "G"}
+                "lanes": "S", "lanegrad": "S", "ecrot_sweep": "G", "ecrot_packet": "G",
+                "pano2048": "G"}
 
 
 @pytest.mark.parametrize("tag,b,n,H,W", SHAPES, ids=[s[0] for s in SHAPES])
