@@ -182,14 +182,43 @@ Phases, in order; any failure exits non-zero:
    pool's entries, bytes and drops, and the RMS against the truth both
    ways. Phase 3 also holds K1 and K2 at this preset's packet shapes
    (ecrot_sweep: 9 rungs x 200 000 events, ecrot_packet: 1 x 200 000, on
-   480x640).
+   480x640);
+9. presets: the CLI's three other presets, each through
+   ``cmax_slam_tpu_torch.cli.main`` in this process (run_preset,
+   PRESET_RUNS): (a) no --preset (SystemConfig(): 30 000-event packets
+   every 0.02 s, one knot per 0.1 s, BA from 3 events a window, the map's
+   update cap of 10, a 1024x2048 panorama) on make_stream's camera turning
+   at 0.54 rad/s for 1.5 s, a text file, with a refine pass; (b)
+   ecrot_synth (70 000-event packets every 0.005 s, a 512x1024 panorama)
+   on the ecrot phase's camera and motion at 2 Mev/s for 0.8 s, an .npz
+   file read in chunks of 2^17 events; (c) live_davis (10x front-end and
+   5x in-batch decimation, 5 000-event packets every 0.04 s, BA on every
+   window, no bootstrap re-solve) on a 346x260 camera at 1 Mev/s and 1.0
+   rad/s for 1.0 s, fed as 't x y p' lines through a pipe bound to
+   sys.stdin (--events -). Each run: rc 0, every event read, the six
+   outputs, K1, K2, K4, K5 and the loop predicate launched, phase 4's loop
+   gates (no front-end wait, the back-end's waits bounded, no
+   synchronizing call outside captures in the push loop), windows cut
+   only past their cap as the reference cuts them, BA in 12 of 13 / 5 /
+   7 of 8 windows and RMS < 0.3 / 0.3 / 1.5 deg; (a) the map's cap bound
+   (update_times past 10), (b) 8 or more packets a front-end launch, (c)
+   the front-end's events the raw count over 10 within one per chunk and
+   its omega within 0.05 rad/s of the truth at the median. Each prints
+   its wall, events/s and realtime factor, the timers, packets, windows
+   and their events after the decimation, the crop shapes and blur paths,
+   launches by kernel and variant, captures, waits, the pool's new
+   entries and their bytes, peak memory and the RMS both ways. Phase 3
+   also holds K1 and K2 at these presets' packet shapes (default_sweep /
+   default_packet: 9 / 1 x 30 000 on 180x240, synth_sweep / synth_packet:
+   9 / 1 x 70 000 on 480x640, live_packet: 1 x 5 000 on 260x346).
 
 With ``--parent DIR`` (an unpacked checkout of another commit) phase 3
 also builds the parent's csrc/iwe.cu and, where it differs from this
 tree's, its csrc/pano_vote.cu, and holds and times its K3 and K4/K5 in
 turns with this tree's (ParentJvp: the C interface read from the
-parent's source, which must be this tree's; ParentPanoVote: the launch
-plan and C interface of the first K4/K5 design), phase 4 captures the crop evaluation
+parent's source, which must be this tree's; ParentPanoVote: this tree's
+launch plan, the parent's C interfaces read from its source, which must
+be this tree's), phase 4 captures the crop evaluation
 through the parent's K4/K5 too, and at the end it times the loop bodies
 (tools/loop_latency.py) and phase 4 on both trees in turns, each turn a
 process of its own, and prints the nodes of one CG iteration of each
@@ -201,7 +230,8 @@ Before the last line it prints one JSON object with every kernel's route,
 source, launches on each path (the system runs of phase 4, its derivative
 images, the small ring, the cubic system, the resume pair, the CLI run of
 phase 5, the second batched call of phase 6, the window and replay runs
-of phase 7 and the three runs of phase 8, each counted from 0), error, times and bound, and the same per
+of phase 7, the three runs of phase 8 and the three of phase 9, each
+counted from 0), error, times and bound, and the same per
 variant (K1: G, P), with K1's launches on the system path by shape bucket;
 K3's launches are those of the derivative-images path; K4's and K5's by
 path, spline order and shape, K4's with the captured crop evaluation's
@@ -253,6 +283,14 @@ SHAPES = (
     # packets on the 640x480 camera, the rung sweep and the value-and-grad.
     ("ecrot_sweep", 9, 200_000, 480, 640, ("fwd",), (9, 1)),
     ("ecrot_packet", 1, 200_000, 480, 640, ("fwd", "bwd"), (1, 1)),
+    # The presets phase's front-ends: the default preset's 30 000-event
+    # packets on the 240x180 camera, ecrot_synth's 70 000 on 640x480 and
+    # live_davis's 5 000 on the DAVIS346's 346x260.
+    ("default_sweep", 9, 30_000, 180, 240, ("fwd",), (9, 1)),
+    ("default_packet", 1, 30_000, 180, 240, ("fwd", "bwd"), (1, 1)),
+    ("synth_sweep", 9, 70_000, 480, 640, ("fwd",), (9, 1)),
+    ("synth_packet", 1, 70_000, 480, 640, ("fwd", "bwd"), (1, 1)),
+    ("live_packet", 1, 5_000, 260, 346, ("fwd", "bwd"), (1, 1)),
 )
 # The shape whose times go into the JSON line, per kernel: its widest
 # launch on the paths, the batched tracker's.
@@ -981,19 +1019,27 @@ def pano_case(order: int, span: float, n_events: int, image: tuple, device: str 
 
 class ParentPanoVote:
     """K4/K5 of another commit's tree (``chip_smoke.py --parent DIR``): its
-    csrc/pano_vote.cu built beside this tree's and driven by PR 11's launch
-    plan and C interface (a block per run of whole batches; K5's scratch a
-    partial per block and a completion counter zeroed by the caller), for
+    csrc/pano_vote.cu built beside this tree's and driven by this tree's
+    launch plan (cuda_pano_vote.fwd_events, bwd_events and bwd_scratch) for
     phase 3's comparison in turns and the captured crop evaluation through
-    it (``_images_by(PARENT)``). Launches are counted under this tree's
-    keys."""
+    it (``_images_by(PARENT)``). The C interface of both kernels is read
+    from the parent's source (_c_signature): each must take this tree's
+    parameters, or the parent is refused (the first K4/K5 design, before the
+    redesign, took a completion counter in K5). Its launcher checks the plan
+    against its own limits and returns an error for one it cannot take.
+    Launches are counted under this tree's keys."""
 
-    FWD_EVENTS, BWD_WARPS, BWD_BLOCKS, MAX_BATCHES = 1024, 8, 264, 64  # PR 11's constants
+    KERNELS = ("iwe_pano_vote_fwd", "iwe_pano_vote_bwd")
 
     def __init__(self, root: str):
         from cmax_slam_tpu_torch.ops import cuda_pano_vote, nvcc
 
         self.src = Path(root) / "cmax_slam_tpu_torch" / "csrc" / "pano_vote.cu"
+        for name in self.KERNELS:
+            mine, theirs = (_c_signature(f, name) for f in (cuda_pano_vote.SOURCE, self.src))
+            if theirs != mine:
+                raise RuntimeError(f"the parent's {name} takes ({theirs}), not this tree's "
+                                   f"({mine}): its K4/K5 cannot be launched here")
         self.flags = cuda_pano_vote.nvcc_flags()
         self.path = nvcc.library_path(self.src, self.flags, "libpano_vote_parent")
         self.lib = None
@@ -1003,54 +1049,44 @@ class ParentPanoVote:
 
     def build(self):
         import ctypes
+        from cmax_slam_tpu_torch.ops import cuda_pano_vote
 
         if self.lib is None:
-            lib = ctypes.CDLL(str(self.path))
-            p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-            common = [p] * 8 + [i64, i32, i64, i32, i32, f32, f32, f32, f32, i32, i32, i32]
-            lib.iwe_pano_vote_fwd.argtypes = [*common, p, p]
-            lib.iwe_pano_vote_bwd.argtypes = [*common, p, p, p, p, p]
-            lib.iwe_pano_vote_fwd.restype = lib.iwe_pano_vote_bwd.restype = i32
+            lib, mine = ctypes.CDLL(str(self.path)), cuda_pano_vote.build()
+            for name in self.KERNELS:
+                getattr(lib, name).argtypes = getattr(mine, name).argtypes
+                getattr(lib, name).restype = ctypes.c_int
             self.lib = lib
         return self.lib
 
-    def _args(self, ops, height, width, bpb):
+    def _call(self, name: str, *args) -> None:
+        import torch
+
+        err = getattr(self.build(), name)(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent {name} launch failed: error {err}")
+
+    def launch_fwd(self, ops, out, height: int, width: int) -> None:
+        """One raw K4 launch, as cuda_pano_vote.launch_fwd plans it."""
+        from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_pano_vote
+
+        M, K, B, ebs = cuda_pano_vote.check_operands(ops)
+        per_block = cuda_pano_vote.fwd_events(ebs, M * B * ebs,
+                                              cuda_iwe.device_attrs(ops.delta.device)[0])
+        self._call("iwe_pano_vote_fwd",
+                   *cuda_pano_vote._args(ops, M, K, B, ebs, height, width, per_block),
+                   out.data_ptr())
+
+    def launch_bwd(self, ops, g, part, out) -> None:
+        """One raw K5 launch, as cuda_pano_vote.launch_bwd plans it, with
+        ``part`` from cuda_pano_vote.bwd_scratch(ops)."""
         from cmax_slam_tpu_torch.ops import cuda_pano_vote
 
         M, K, B, ebs = cuda_pano_vote.check_operands(ops)
-        return cuda_pano_vote._args(ops, M, K, B, ebs, height, width, bpb)
-
-    def fwd_batches(self, ebs: int) -> int:
-        return max(1, min(self.MAX_BATCHES, self.FWD_EVENTS // ebs))
-
-    def bwd_batches(self, B: int) -> int:
-        return min(self.MAX_BATCHES,
-                   self.BWD_WARPS * max(1, -(-B // (self.BWD_WARPS * self.BWD_BLOCKS))))
-
-    def _call(self, fn, *args) -> None:
-        import torch
-
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"parent pano_vote launch failed: error {err}")
-
-    def launch_fwd(self, ops, out, height: int, width: int) -> None:
-        ebs = ops.weights.shape[0] // ops.seg.shape[0]
-        self._call(self.build().iwe_pano_vote_fwd,
-                   *self._args(ops, height, width, self.fwd_batches(ebs)), out.data_ptr())
-
-    def scratch(self, ops) -> tuple:
-        import torch
-
-        M, K, _ = ops.delta.shape
-        B = ops.seg.shape[0]
-        return (torch.empty((M, -(-B // self.bwd_batches(B)), 3 * K), device=ops.delta.device),
-                torch.zeros(1, dtype=torch.int32, device=ops.delta.device))
-
-    def launch_bwd(self, ops, g, part, counter, out) -> None:
-        self._call(self.build().iwe_pano_vote_bwd,
-                   *self._args(ops, g.shape[1], g.shape[2], self.bwd_batches(ops.seg.shape[0])),
-                   g.data_ptr(), part.data_ptr(), counter.data_ptr(), out.data_ptr())
+        self._call("iwe_pano_vote_bwd",
+                   *cuda_pano_vote._args(ops, M, K, B, ebs, g.shape[1], g.shape[2],
+                                         cuda_pano_vote.bwd_events(ebs)),
+                   g.data_ptr(), part.data_ptr(), out.data_ptr())
 
     def pano_vote_fwd(self, ops, height: int, width: int):
         """cuda_pano_vote.pano_vote_fwd through these kernels."""
@@ -1066,11 +1102,10 @@ class ParentPanoVote:
     def pano_vote_bwd(self, ops, g):
         """cuda_pano_vote.pano_vote_bwd through these kernels."""
         import torch
-        from cmax_slam_tpu_torch.ops import cuda_iwe
+        from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_pano_vote
 
-        part, counter = self.scratch(ops)
         out = torch.empty_like(ops.delta)
-        self.launch_bwd(ops, g, part, counter, out)
+        self.launch_bwd(ops, g, cuda_pano_vote.bwd_scratch(ops), out)
         cuda_iwe._launched("pano_bwd", f"o{ops.order}",
                            (g.shape[0], ops.weights.shape[0], g.shape[1], g.shape[2]))
         return out
@@ -1090,8 +1125,7 @@ def check_pano_vote(rng, floor_ms: float) -> dict:
     counted; dL/ddelta within rtol 2e-3, atol 2e-6 of its scale, exactly 0
     on the frozen knot, and two K5 launches on the same inputs torch.equal.
     Device times in turns (parent, this, this, parent; K4 with the zero
-    fill of its images and alone, K5 with the fill of the parent's
-    completion counter, this tree's K5 has none; the fills alone) beside
+    fill of its images and alone, K5; the fill alone) beside
     the bound and the launch floor; the wrapper's, the plain version's and
     the composed route's (warp_to_pano in torch, K1/K2) times. No one
     PyTorch call computes the function (library_ms null). Returns per
@@ -1157,29 +1191,20 @@ def pano_check(out: dict, tag: str, order: int, M: int, win, pano, basis, origin
     sms = cuda_iwe.device_attrs(delta.device)[0]
     plan = {"this": {"fwd": cuda_pano_vote.fwd_events(ebs, M * N, sms),
                      "bwd": cuda_pano_vote.bwd_events(ebs)}}
-    if PARENT is not None:
-        plan["parent"] = {"fwd": PARENT.fwd_batches(ebs), "bwd": PARENT.bwd_batches(B)}
+    if PARENT is not None:  # the parent runs this tree's plan (ParentPanoVote)
+        plan["parent"] = plan["this"]
     per, timed = {}, {}
     for tree in trees:
         img = torch.zeros((M, *hw), device="cuda")
         dd = [torch.empty_like(ops.delta) for _ in range(2)]
-        if tree == "this":
-            part, counter = cuda_pano_vote.bwd_scratch(ops), None
+        part = cuda_pano_vote.bwd_scratch(ops)
+        kernels = cuda_pano_vote if tree == "this" else PARENT
 
-            def fwd(img=img):
-                cuda_pano_vote.launch_fwd(ops, img, *hw)
+        def fwd(img=img, kernels=kernels):
+            kernels.launch_fwd(ops, img, *hw)
 
-            def bwd(x, part=part):
-                cuda_pano_vote.launch_bwd(ops, g, part, x)
-        else:
-            part, counter = PARENT.scratch(ops)
-
-            def fwd(img=img):
-                PARENT.launch_fwd(ops, img, *hw)
-
-            def bwd(x, part=part, counter=counter):
-                counter.zero_()
-                PARENT.launch_bwd(ops, g, part, counter, x)
+        def bwd(x, part=part, kernels=kernels):
+            kernels.launch_bwd(ops, g, part, x)
         fwd()
         for x in dd:  # twice on the same inputs: deterministic
             bwd(x)
@@ -1193,9 +1218,7 @@ def pano_check(out: dict, tag: str, order: int, M: int, win, pano, basis, origin
 
         timed[tree] = {"K4": k4, "K4_alone": lambda k4=k4: k4(False),
                        "K5": lambda bwd=bwd, x=dd[0]: bwd(x)}
-        if counter is not None:
-            timed["fills"] = {"counter_fill": counter.zero_}
-    timed.setdefault("fills", {})["fill"] = img.zero_
+    timed["fills"] = {"fill": img.zero_}
     dev_t = {tree: {v: [] for v in fns} for tree, fns in timed.items()}
     turns = trees[::-1] + trees  # parent, this, this, parent
     for v in ("K4", "K5", "K4_alone"):
@@ -1226,7 +1249,7 @@ def pano_check(out: dict, tag: str, order: int, M: int, win, pano, basis, origin
     entry = {"order": order, "M": M, "events": N, "live_events": live, "batches": B,
              "knots": K, "image": list(image), "tol": tol, "g_tol": g_tol, "g_scale": scale,
              "floor_ms": floor_ms, "fill_ms": fills["fill"],
-             "counter_fill_ms": fills.get("counter_fill"), "ms": ms}
+             "ms": ms}
     for k, key in (("pano_fwd", "K4"), ("pano_bwd", "K5")):
         bd = pano_bound(k, M, N, live, B, K, order, *hw)
         by_tree = {
@@ -1265,18 +1288,17 @@ def pano_check(out: dict, tag: str, order: int, M: int, win, pano, basis, origin
     for tree in trees:
         v = per[tree]
         _log(f"pano_vote {tag:8s} {tree} (K4 {plan[tree]['fwd']}, K5 {plan[tree]['bwd']} "
-             f"{'events' if tree == 'this' else 'batches'} a block): K4 err "
+             f"events a block): K4 err "
              f"{v['max_abs_err']:.3e} ({v['pixels_past_tol']} past), K5 err "
              f"{v['g_max_abs_err']:.3e}, frozen 0 {v['frozen_knot_zero']}, K5 twice equal "
              f"{v['k5_repeat_equal']}; device us in turns K4 with fill "
              f"{turns_of(tree, 'K4')} ({bf / np.mean(dev_t[tree]['K4']):.1%} of bound), "
-             f"alone {turns_of(tree, 'K4_alone')}; K5"
-             f"{' with counter fill' if tree == 'parent' else ''} {turns_of(tree, 'K5')} "
+             f"alone {turns_of(tree, 'K4_alone')}; K5 {turns_of(tree, 'K5')} "
              f"({bb / np.mean(dev_t[tree]['K5']):.1%})")
     _log(f"pano_vote {tag:8s} ms {json.dumps(ms)}")
     if not ok:
         raise AssertionError(f"pano_vote {tag}: route {route}, trees {per}")
-    del got, ref, ops, timed, img, part, counter, dd
+    del got, ref, ops, timed, img, part, dd
 
 
 def _rot_fn(omega):
@@ -1293,24 +1315,37 @@ def _rot_fn(omega):
     return rot_fn
 
 
-@functools.lru_cache(maxsize=2)
-def make_stream(duration: float = 2.0):
+STREAM_OMEGA = (0.9, -1.3, 1.9)
+STREAM_CAMERA = (240, 180, 180.0)  # width, height, fx = fy
+
+
+def make_stream(duration: float = 2.0, omega: tuple = STREAM_OMEGA, rate: int = 390_000,
+                camera: tuple = STREAM_CAMERA):
     """The examples/tpu_realtime_check.py stream (240x180, fx = fy = 180,
     omega = [0.9, -1.3, 1.9], 1200 landmarks, 390k ev/s, seed 11) with the
     landmarks spread over the whole sphere instead of a 120-degree cone:
     in 2 s the camera turns 286 degrees, and with the cone its view leaves
     the landmarks around t = 1.3 s (windows fall to 20k events), where the
     JAX system on the CPU ends 3.3 deg RMS off the truth on this 2 s cut.
-    On the sphere every view keeps texture. Returns (events, omega, calib);
-    cached, so every phase reads the same arrays (read-only)."""
+    On the sphere every view keeps texture. ``omega``, ``rate`` (events/s)
+    and ``camera`` ((width, height, focal length), centred) change the
+    motion and the sensor; the draws are the same generator's from seed
+    11. Returns (events, omega, calib); cached per argument, so every phase
+    reads the same arrays (read-only)."""
+    return _make_stream(float(duration), tuple(float(w) for w in omega), int(rate),
+                        tuple(camera))
+
+
+@functools.lru_cache(maxsize=4)
+def _make_stream(duration: float, omega: tuple, rate: int, camera: tuple):
     from cmax_slam_tpu_torch.calib import CameraCalibration
     from cmax_slam_tpu_torch.io import synthetic
 
-    W, H, F = 240, 180, 180.0
-    omega = np.array([0.9, -1.3, 1.9])
+    W, H, F = camera
+    omega = np.array(omega)
     rng = np.random.default_rng(11)
     landmarks = synthetic.make_landmarks(rng, 1200, fov_deg=360.0)
-    ev = synthetic.rotating_camera_events(rng, int(390_000 * duration), duration, omega,
+    ev = synthetic.rotating_camera_events(rng, int(rate * duration), duration, omega,
                                           F, F, W / 2, H / 2, W, H,
                                           rot_fn=_rot_fn(omega), landmarks=landmarks)
     calib = CameraCalibration(width=W, height=H,
@@ -2611,6 +2646,56 @@ class ProgramTimes:
         return out
 
 
+def _spy_windows(slam, rec: dict):
+    """Record into ``rec`` what the system ``slam`` does with its events:
+    ``frontend_events``, the events its front-end receives (after the
+    front-end's decimation), and ``windows``, each window's events (in the
+    window, padded, after the in-batch decimation) and pass ("online", or
+    the re-solve that Backend.refine_pass runs: "bootstrap" inside the push
+    loop, "refine" after it, ``rec["state"]`` saying which). Returns the
+    function that removes the spies."""
+    fe, be = slam.frontend, slam.backend
+    fe_push, arrays, refine = fe.push_events, be._window_arrays, be.refine_pass
+    rec.update(frontend_events=0, windows=[], **{"pass": "online"})
+
+    def pushed(xs, ys, ts, ps):
+        rec["frontend_events"] += len(ts)
+        return fe_push(xs, ys, ts, ps)
+
+    def window_arrays(xs, ys, ts, idx):
+        out = arrays(xs, ys, ts, idx)
+        rec["windows"].append({"events": len(ts), "padded": len(out["valid"]),
+                               "after_decimation": int(out["valid"].sum()),
+                               "pass": rec["pass"]})
+        return out
+
+    def refine_pass(*a, **kw):
+        rec["pass"] = "refine" if rec.get("state") == "after" else "bootstrap"
+        try:
+            return refine(*a, **kw)
+        finally:
+            rec["pass"] = "online"
+
+    fe.push_events, be._window_arrays, be.refine_pass = pushed, window_arrays, refine_pass
+
+    def after():
+        del fe.push_events, be._window_arrays, be.refine_pass
+
+    return after
+
+
+def _cut_as_reference(bcfg, windows: list, dropped: int) -> bool:
+    """A window of more events than the back-end's cap (rounded up to whole
+    batches) keeps its first ``cap`` events, as the JAX package's does
+    (cmax_slam_tpu/backend.py:921-938): the events dropped are each
+    window's excess (``windows`` as _spy_windows records them), and no
+    window is padded past the cap."""
+    bs = bcfg.warp.event_batch_size
+    cap = -(-bcfg.max_events_per_window // bs) * bs
+    return (dropped == sum(max(0, w["events"] - cap) for w in windows)
+            and all(w["padded"] <= cap for w in windows))
+
+
 def run_ecrot(device: str = "cuda", label: str = "ecrot", shed: bool = False,
               upto: float | None = None, duration: float = ECROT_DURATION,
               rate: int = ECROT_RATE, overrides=None, min_ba: int | None = None,
@@ -2649,36 +2734,10 @@ def run_ecrot(device: str = "cuda", label: str = "ecrot", shed: bool = False,
          f"{bcfg.sliding_window.sliding_window_stride} s, panorama {pano_hw[0]}x{pano_hw[1]} at y_angle "
          f"{bcfg.pano_map.y_angle_deg} deg, max_events_per_window "
          f"{bcfg.max_events_per_window}; overrides {overrides or {}}")
-    rec = {"frontend_events": 0, "windows": [], "refine": False}
+    rec = {}
 
     def spy(slam):
-        fe, be = slam.frontend, slam.backend
-        fe_push, arrays, refine = fe.push_events, be._window_arrays, be.refine_pass
-
-        def pushed(xs, ys, ts, ps):
-            rec["frontend_events"] += len(ts)
-            return fe_push(xs, ys, ts, ps)
-
-        def window_arrays(xs, ys, ts, idx):
-            out = arrays(xs, ys, ts, idx)
-            rec["windows"].append({"events": len(ts), "padded": len(out["valid"]),
-                                   "after_decimation": int(out["valid"].sum()),
-                                   "bootstrap_resolve": rec["refine"]})
-            return out
-
-        def refine_pass(*a, **kw):  # the bootstrap re-solve's windows
-            rec["refine"] = True
-            try:
-                return refine(*a, **kw)
-            finally:
-                rec["refine"] = False
-
-        fe.push_events, be._window_arrays, be.refine_pass = pushed, window_arrays, refine_pass
-
-        def after():
-            del fe.push_events, be._window_arrays, be.refine_pass
-
-        return after
+        return _spy_windows(slam, rec)
 
     pool0 = program_pool.stats()
     with ProgramTimes(device) as times:
@@ -2709,8 +2768,8 @@ def run_ecrot(device: str = "cuda", label: str = "ecrot", shed: bool = False,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else 0.0}
     _log(f"{label}: wall {wall:.3f} s, realtime factor {span / wall:.4f}; timers "
          f"{json.dumps(stats['timers'])}; BA in {n_ba} of {len(wins)} windows; events per "
-         f"window (in the window, padded, after the in-batch decimation; the bootstrap "
-         f"re-solve's too) {json.dumps(rec['windows'])}; cut at the cap of "
+         f"window (in the window, padded, after the in-batch decimation, pass) "
+         f"{json.dumps(rec['windows'])}; cut at the cap of "
          f"{bcfg.max_events_per_window} {stats['events_dropped_at_cap']}; front-end events {rec['frontend_events']} of "
          f"{n} raw; crop shapes {stats['crop_shapes']}, blur paths "
          f"{json.dumps(stats['blur_paths'])}, window solves {json.dumps(stats['window_solves'])}")
@@ -2728,15 +2787,10 @@ def run_ecrot(device: str = "cuda", label: str = "ecrot", shed: bool = False,
          f"{stats['peak_gib']:.3f} GiB; pool before {json.dumps(pool0)}, after "
          f"{json.dumps(stats['pool_after'])}; RMS against the truth {stats['rms_deg']:.4f} deg "
          f"({stats['rms_unnormalized_deg']:.4f} unnormalized)")
-    # A window of more events than the cap (rounded up to whole batches)
-    # keeps its first ``cap`` events, as the JAX package's does
-    # (cmax_slam_tpu/backend.py:921-938); the stream's rate varies with the
-    # landmarks in view, so a 0.2 s window may hold more than 2^20 events.
-    bs = bcfg.warp.event_batch_size
-    cap = -(-bcfg.max_events_per_window // bs) * bs
-    checks["events cut only past the cap, as the reference cuts them"] = (
-        stats["events_dropped_at_cap"] == sum(max(0, w["events"] - cap) for w in rec["windows"])
-        and all(w["padded"] <= cap for w in rec["windows"]))
+    # The stream's rate varies with the landmarks in view, so a 0.2 s window
+    # may hold more than 2^20 events.
+    checks["events cut only past the cap, as the reference cuts them"] = _cut_as_reference(
+        bcfg, rec["windows"], stats["events_dropped_at_cap"])
     checks["loop predicate ran"] = device != "cuda" or stats["pred"] > 0
     if min_ba is not None:
         checks[f"BA in >= {min_ba} windows"] = n_ba >= min_ba
@@ -3313,6 +3367,309 @@ def run_ecrot_phase(phase, graphs: dict, pano: dict, rng, floor_ms: float) -> di
     return out
 
 
+# The presets phase: the CLI's three presets that no other phase runs, each
+# through cli.main on a stream at its own scale. "default" (no --preset,
+# SystemConfig()) on make_stream's camera turning at 0.54 rad/s, slow
+# enough that a map pixel stays in view past the cap of 10 updates;
+# "ecrot_synth" on the ecrot phase's camera and motion at 2 Mev/s in
+# chunks of 2^17 events: its 70 000-event packets must span at most 10 x
+# its 0.005 s (the front-end's degenerate-packet guard, as the JAX
+# package's: a longer packet gives omega = 0 and no solve), which needs
+# more than 1.4 Mev/s, and a chunk then completes 13-20 packets, which the
+# front-end solves as one stride; its 2^18-event window cap cuts each
+# 0.2 s window (322 000-469 000 events) as the JAX package cuts it;
+# "live_davis" on a
+# DAVIS346 (346x260) at 1 Mev/s and a handheld 1.0 rad/s, fed through a
+# pipe as --events -. Each run's gates: BA windows, RMS (the live preset's
+# wider: it sheds load), and what the preset exists for.
+PRESET_RUNS = {
+    "default": {"stream": {"duration": 1.5, "omega": (0.2, -0.3, 0.4)}, "file": "txt",
+                "argv": ["--refine-passes", "1"], "min_ba": 12, "rms_deg": 0.3},
+    "ecrot_synth": {"stream": {"duration": 0.8, "rate": 2_000_000}, "file": "npz",
+                    "argv": ["--preset", "ecrot_synth", "--chunk-size", str(1 << 17)],
+                    "min_ba": 5, "rms_deg": 0.3},
+    "live_davis": {"stream": {"duration": 1.0, "omega": (0.3, -0.5, 0.8), "rate": 1_000_000,
+                              "camera": (346, 260, 260.0)},
+                   "file": "pipe", "argv": ["--preset", "live_davis"], "min_ba": 7,
+                   "rms_deg": 1.5},
+}
+LIVE_BLOCK_S = 0.05  # stream seconds per write into the live run's pipe
+
+
+@contextlib.contextmanager
+def _cli_system(audit, rec: dict):
+    """For one cli.main call, cli.CMaxSLAM is a subclass that records the
+    system it makes (``rec["slam"]``) and, through _spy_windows, its
+    front-end's events and each window's events and pass, and holds
+    ``audit`` (a SyncAudit) open over its
+    push loop: from the first push_events to the first flush, which the
+    CLI makes once its source is exhausted; the loop's counters are kept
+    at that flush (``rec["loop"]``)."""
+    from cmax_slam_tpu_torch import cli
+
+    base = cli.CMaxSLAM
+    rec["state"] = "before"
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rec["slam"] = self
+            rec["unspy"] = _spy_windows(self, rec)
+
+        def push_events(self, *a):
+            if rec["state"] == "before":
+                rec["state"] = "loop"
+                audit.__enter__()
+            return super().push_events(*a)
+
+        def flush(self):
+            if rec["state"] == "loop":
+                audit.__exit__(None, None, None)
+                rec["state"] = "after"
+                rec["loop"] = dict(self.metrics.counters)
+                rec["loop"]["windows_completed"] = len(self.backend.results)
+            return super().flush()
+
+    cli.CMaxSLAM = Recorded
+    try:
+        yield
+    finally:
+        cli.CMaxSLAM = base
+        if rec["state"] == "loop":
+            audit.__exit__(None, None, None)
+        if "unspy" in rec:
+            rec.pop("unspy")()
+
+
+def _pipe_stdin(ev, block_s: float):
+    """A real pipe as sys.stdin, and a writer thread that fills it with the
+    stream's 't x y p' lines, ``block_s`` s of the stream a write (the lines
+    are formatted before the thread starts, so that it holds no Python
+    lock while the CLI reads). Returns (the seconds the formatting took, a
+    function that joins the writer and restores sys.stdin)."""
+    import threading
+
+    t0 = time.perf_counter()
+    edges = np.searchsorted(ev.ts, np.arange(0.0, ev.ts[-1] + block_s, block_s))
+    edges = np.unique(np.append(edges, len(ev.ts)))
+    blocks = ["".join(f"{t:.9f} {x} {y} {int(p > 0)}\n" for t, x, y, p in zip(
+        ev.ts[lo:hi].tolist(), ev.xs[lo:hi].tolist(), ev.ys[lo:hi].tolist(),
+        ev.pols[lo:hi].tolist())).encode() for lo, hi in zip(edges[:-1], edges[1:])]
+    fmt_s = time.perf_counter() - t0
+    r, w = os.pipe()
+
+    def write():
+        try:
+            with os.fdopen(w, "wb", buffering=0) as out:
+                for block in blocks:
+                    out.write(block)
+        except BrokenPipeError:  # the reader stopped early (its error is the one raised)
+            pass
+
+    stdin, sys.stdin = sys.stdin, os.fdopen(r, "r")
+    writer = threading.Thread(target=write, daemon=True)
+    writer.start()
+
+    def restore():
+        sys.stdin.close()  # the read end first: a writer still blocked on it gets an error
+        writer.join()
+        sys.stdin = stdin
+
+    return fmt_s, restore
+
+
+def run_preset(name: str, device: str = "cuda", stream: dict | None = None,
+               overrides: dict | None = None):
+    """One run of the presets phase: PRESET_RUNS[name]'s stream (make_stream,
+    or make_ecrot_stream for ecrot_synth; ``stream`` overrides its
+    arguments) through cli.main in this process, as a text file, an .npz
+    file or a pipe, with ``overrides`` as --set (CPU rehearsals). The push
+    loop is audited (SyncAudit) and phase 4's loop gates apply
+    (_graph_checks); the run must read every event, write the six outputs,
+    launch K1, K2, K4, K5 and the loop predicate, run BA in PRESET_RUNS'
+    windows and track the truth within its RMS; each window's events are
+    cut only past its cap, as the JAX package cuts them; and the preset's
+    own: default's map cap bound (update_times past max_update_times),
+    ecrot_synth's strides (8 or more packets a front-end launch),
+    live_davis's front-end decimation (its events the raw count over 10,
+    within one per chunk) and omega (median within 0.05 rad/s of the
+    truth). Prints the wall, events/s and realtime factor, the timers,
+    packets, windows and their events, the crop shapes and blur paths,
+    launches by kernel and variant, captures, waits, the pool's new
+    entries and their bytes, peak memory and the RMS both ways. Returns
+    (launches, checks, stats)."""
+    import torch
+    from cmax_slam_tpu_torch import cli, spline
+    from cmax_slam_tpu_torch.ops import blur, program_pool
+    from cmax_slam_tpu_torch.utils.evaluate import read_tum_trajectory, rotation_rms_deg
+
+    run = PRESET_RUNS[name]
+    label = f"preset_{name}"
+    kw = run["stream"] | dict(stream or {})
+    t0 = time.perf_counter()
+    if name == "ecrot_synth":
+        ev, omega, calib, _ = make_ecrot_stream(kw["duration"], kw["rate"])
+    else:
+        ev, omega, calib = make_stream(**kw)
+    gen_s = time.perf_counter() - t0
+    n, span = len(ev.ts), kw["duration"]
+    pool0 = {id(e) for group in list(program_pool.ENTRIES.values()) for e in group}
+    rec, audit = {}, SyncAudit(device)
+    with tempfile.TemporaryDirectory(prefix="cmax_preset_") as tmp:
+        t0 = time.perf_counter()
+        events = "-"
+        if run["file"] == "txt":
+            events = os.path.join(tmp, "events.txt")
+            np.savetxt(events, np.column_stack([ev.ts, ev.xs, ev.ys, (ev.pols > 0).astype(int)]),
+                       fmt="%.9f %d %d %d")
+        elif run["file"] == "npz":
+            events = os.path.join(tmp, "events.npz")
+            np.savez(events, x=ev.xs, y=ev.ys, t=ev.ts, p=ev.pols)
+        K = calib.K
+        calib_txt = os.path.join(tmp, "calib.txt")
+        with open(calib_txt, "w") as f:
+            f.write(f"{K[0, 0]} {K[1, 1]} {K[0, 2]} {K[1, 2]} 0 0 0 0 0\n")
+        write_s = time.perf_counter() - t0
+        out = os.path.join(tmp, "out")
+        argv = ["--device", device, "--events", events, "--calib", calib_txt,
+                "--width", str(calib.width), "--height", str(calib.height), "--out-dir", out,
+                *run["argv"], *(a for k, v in (overrides or {}).items()
+                                for a in ("--set", f"{k}={json.dumps(v)}"))]
+        restore = None
+        if events == "-":  # the lines are formatted here, outside the wall
+            fmt_s, restore = _pipe_stdin(ev, LIVE_BLOCK_S)
+            write_s += fmt_s
+        try:
+            _log(f"{label}: {n} events over {span} s of a {calib.width}x{calib.height} stream "
+                 f"(omega {omega.tolist()}, generated in {gen_s:.2f} s, written as "
+                 f"{run['file']} in {write_s:.2f} s, outside the wall); argv "
+                 f"{' '.join(argv[2:])}")
+            _reset_launches()
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _cli_system(audit, rec):
+                rc = cli.main(argv)
+        finally:
+            if restore is not None:
+                restore()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        files = sorted(os.listdir(out))
+        stats = json.load(open(os.path.join(out, "stats.json")))
+        times, quats = read_tum_trajectory(os.path.join(out, "trajectory_tum.txt"))
+        q_gt = np.stack([spline._np_quat_exp(omega * t) for t in times])
+        rms = rotation_rms_deg(times, q_gt, quats, "global")[0]
+        rms_raw = _rms_unnormalized(q_gt, quats)
+        av = np.atleast_2d(np.loadtxt(os.path.join(out, "angular_velocity.txt")))
+        with np.load(os.path.join(out, "final_state.npz")) as z:
+            upd = z["update_times"]
+    slam = rec["slam"]
+    cfg, be, fe = slam.cfg, slam.backend, slam.frontend
+    graphs = _graph_stats(slam, device, rec["loop"], audit)
+    wins = slam.window_results()
+    n_ba = sum(w.ran_ba for w in wins)
+    counters = stats["metrics"]["counters"]
+    timers = {k: {"total_s": v["total_s"], "count": v["count"]}
+              for k, v in stats["metrics"]["timers"].items()}
+    packets = stats["ang_vel_estimates"]
+    chunk = int(argv[argv.index("--chunk-size") + 1]) if "--chunk-size" in argv else 1 << 16
+    chunks = -(-n // chunk)
+    omega_err = np.linalg.norm(av[:, 1:] - omega, axis=1)
+    cap = cfg.backend.pano_map.max_update_times
+    new_entries = [e for group in list(program_pool.ENTRIES.values()) for e in group
+                   if id(e) not in pool0]
+    graphs |= {
+        "wall_s": wall, "stream_s": span, "realtime_factor": span / wall, "raw_events": n,
+        "events_per_second": stats["events_per_second"], "generate_s": gen_s,
+        "write_s": write_s, "timers": timers, "packets": packets,
+        "frontend_events": rec["frontend_events"], "windows": len(wins), "ba_windows_run": n_ba,
+        "window_events": rec["windows"],
+        "events_dropped_at_cap": counters.get("backend.events_dropped", 0),
+        "knots_per_window": be.K_win, "knot_stride": be.cp_stride,
+        "ba_threshold_events": be.min_events_per_win,
+        "window_programs": sorted(str(k) for k in be._entry.programs),
+        "update_times_max": int(upd.max()), "pixels_past_cap": int((upd > cap).sum()),
+        "crop_shapes": sorted(be._crop_shapes),
+        "blur_paths": {f"crop {h}x{w}": blur.blur_path(h, w) for h, w in sorted(be._crop_shapes)}
+        | {f"panorama {be.pano.height}x{be.pano.width}": blur.blur_path(be.pano.height,
+                                                                       be.pano.width)},
+        "launches": {k: launches[k] for k in ("fwd_P", "fwd_G", "bwd_S", "bwd_G", "pano_fwd",
+                                              "pano_bwd")},
+        "omega_err_median": float(np.median(omega_err)), "omega_err_max": float(omega_err.max()),
+        "new_pool_entries": [{"kind": str(e.key[0]), "programs": len(e.programs),
+                              "state_bytes": e.state_bytes(), "allocated_bytes": e.allocated,
+                              "reserved_bytes": e.reserved} for e in new_entries],
+        "rms_deg": rms, "rms_unnormalized_deg": rms_raw}
+    del slam, be, fe, rec["slam"], new_entries
+    _log(f"{label}: rc {rc}, wall {wall:.3f} s for {span} s of stream, realtime factor "
+         f"{span / wall:.4f}, events_per_second {stats['events_per_second']:.0f} "
+         f"({stats['events']} events read of {n}); timers {json.dumps(timers)}; packets "
+         f"{packets} (front-end launches {graphs['frontend_launches']}, "
+         f"{packets / max(graphs['frontend_launches'], 1):.2f} a launch), front-end events "
+         f"{rec['frontend_events']}; windows {len(wins)}, {n_ba} with BA (threshold "
+         f"{graphs['ba_threshold_events']} events), {graphs['knots_per_window']} knots a window "
+         f"at a stride of {graphs['knot_stride']}; events per window (in the window, padded, "
+         f"after the in-batch decimation, pass) {json.dumps(rec['windows'])}; cut at the window cap "
+         f"of {cfg.backend.max_events_per_window} {graphs['events_dropped_at_cap']}")
+    _log(f"{label}: update_times largest {graphs['update_times_max']}, pixels past the cap of "
+         f"{cap} {graphs['pixels_past_cap']}; crop shapes {graphs['crop_shapes']}, blur paths "
+         f"{json.dumps(graphs['blur_paths'])}; window programs {graphs['window_programs']}")
+    _log(f"{label}: launches K1 P/G {launches['fwd_P']}/{launches['fwd_G']}, K2 S/G "
+         f"{launches['bwd_S']}/{launches['bwd_G']}, K4 {launches['pano_fwd']}, K5 "
+         f"{launches['pano_bwd']}, loop predicate {graphs['pred']}; captures "
+         f"{json.dumps(graphs['captures'])}; waits in the push loop front-end "
+         f"{graphs['frontend_waits']}, back-end {graphs['backend_waits']} for "
+         f"{graphs['windows_completed_in_loop']} windows completed in it and "
+         f"{graphs['resolves']} re-solves; sync-debug {json.dumps(graphs.get('audit'))}")
+    _log(f"{label}: new pool entries {json.dumps(graphs['new_pool_entries'])}; peak device "
+         f"memory {graphs['peak_gib']:.3f} GiB; omega error median "
+         f"{graphs['omega_err_median']:.4f} rad/s, largest {graphs['omega_err_max']:.4f}; "
+         f"trajectory_tum RMS against the truth {rms:.4f} deg ({rms_raw:.4f} unnormalized)")
+    outputs = ("angular_velocity.txt", "angular_velocity_deg.txt", "trajectory_tum.txt",
+               "pano_map.png", "final_state.npz", "stats.json")
+    checks = {
+        "cli rc 0": rc == 0,
+        "every event read": stats["events"] == n,
+        "six outputs": all(f in files for f in outputs),
+        "K1 and K2 launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+        "K4 and K5 launched": launches["pano_fwd"] > 0 and launches["pano_bwd"] > 0,
+        "loop predicate ran": device != "cuda" or graphs["pred"] > 0,
+        f"BA in >= {run['min_ba']} windows": n_ba >= run["min_ba"],
+        f"trajectory_tum RMS < {run['rms_deg']} deg": rms < run["rms_deg"],
+        "events cut only past the cap, as the reference cuts them": _cut_as_reference(
+            cfg.backend, rec["windows"], graphs["events_dropped_at_cap"]),
+    }
+    checks |= _graph_checks(graphs, cfg, device)
+    if name == "default":
+        checks[f"update_times past the cap of {cap}"] = graphs["update_times_max"] > cap
+    if name == "ecrot_synth":
+        checks[">= 8 packets a front-end launch"] = (
+            packets >= 8 * graphs["frontend_launches"] > 0)
+    if name == "live_davis":
+        rate = cfg.frontend_event_sample_rate
+        checks["front-end events = raw / rate within 1 per chunk"] = (
+            abs(rec["frontend_events"] - n / rate) <= chunks)
+        checks["front-end omega median within 0.05 rad/s of the truth"] = (
+            graphs["omega_err_median"] < 0.05)
+    return launches, checks, graphs
+
+
+def run_presets_phase(phase, graphs: dict) -> dict:
+    """The presets phase (after ecrot): run_preset for each of PRESET_RUNS
+    through main's ``phase`` wrapper (pooled programs, pool and peak memory
+    printed, checks required); each run's stats into ``graphs`` under
+    "preset_<name>". Returns the launches by path."""
+    out, t0 = {}, time.perf_counter()
+    for name in PRESET_RUNS:
+        launches, _, graphs[f"preset_{name}"] = phase(f"preset_{name}", run_preset, name)
+        out[f"preset_{name}"] = launches
+    _log(f"presets: the phase took {time.perf_counter() - t0:.1f} s, the streams' generation "
+         f"and writing included")
+    return out
+
+
 def _pool_snapshot() -> tuple:
     """({id of each pooled program: captured}, {id of each entry: leases})."""
     from cmax_slam_tpu_torch.ops import program_pool
@@ -3501,6 +3858,7 @@ def main() -> int:
     shard_launches, _, shard_ms = phase("window_shard", run_window_shard)
     replay_launches = phase("replay", run_replay)[0]
     ecrot_launches = run_ecrot_phase(phase, graphs, pano, rng, kernels["bwd"]["floor_ms"])
+    preset_launches = run_presets_phase(phase, graphs)
     loop_turns = walls = None
     if parent is not None:  # the loop and phase 4's wall against another commit, in turns
         loop_turns = loop_in_turns(parent, card)
@@ -3508,7 +3866,7 @@ def main() -> int:
 
     _log("host data plane: " + json.dumps({
         "library": native.library_path().name, "build_s": host_build_s,
-        "scans_by_path": {p: g["scan"] for p, g in graphs.items()},
+        "scans_by_path": {p: g["scan"] for p, g in graphs.items() if "scan" in g},
         "cut_packets": batched_calls["cut"], "card": card}))
     _log(f"window_shard value_and_grad ms in turns on {card}: {json.dumps(shard_ms)}")
     _log("device programs per path: " + json.dumps(graphs))
@@ -3526,6 +3884,7 @@ def main() -> int:
              "ring_wrap": ring_launches, "cubic": cubic_launches,
              "resume": resume_launches, "cli": cli_launches, "batched": batched_launches,
              "window_shard": shard_launches, "replay": replay_launches} | ecrot_launches
+    paths |= preset_launches
 
     def by_path(key):
         return {p: counts[key] for p, counts in paths.items()}

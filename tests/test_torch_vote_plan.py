@@ -62,7 +62,8 @@ SMS, OPTIN = 132, 232_448  # H100 SXM: SMs, cudaDevAttrMaxSharedMemoryPerBlockOp
 # P_MAX_BANDS (G).
 EXPECTED = {"sweep": "G", "packet": "G", "crop": "G", "split": "G", "headroom": "G",
             "lanes": "P", "lanegrad": "P", "ecrot_sweep": "G", "ecrot_packet": "G",
-            "pano2048": "G"}
+            "default_sweep": "G", "default_packet": "G", "synth_sweep": "G",
+            "synth_packet": "G", "live_packet": "G", "pano2048": "G"}
 SHAPES = [(tag, b, n, H, W) for tag, b, n, H, W, *_ in chip_smoke.SHAPES] + [
     ("pano2048", 1, 84_700, 2048, 4096)]
 
@@ -448,7 +449,8 @@ def test_objectives_value_and_grad_ask_k2_for_no_dw(rng, monkeypatch, objective)
 # 2048x4096 do not stage whole (G).
 EXPECTED_BWD = {"sweep": "G", "packet": "G", "crop": "G", "split": "G", "headroom": "G",
                 "lanes": "S", "lanegrad": "S", "ecrot_sweep": "G", "ecrot_packet": "G",
-                "pano2048": "G"}
+                "default_sweep": "G", "default_packet": "G", "synth_sweep": "G",
+                "synth_packet": "G", "live_packet": "G", "pano2048": "G"}
 
 
 @pytest.mark.parametrize("tag,b,n,H,W", SHAPES, ids=[s[0] for s in SHAPES])
@@ -460,7 +462,7 @@ def test_bwd_planner_stages_whole_images_and_picks_the_variant(tag, b, n, H, W):
     if cuda_iwe.stages_whole(H, W, OPTIN):
         forced = cuda_iwe.plan_vote_bwd(b, n, H, W, SMS, OPTIN, variant="S")
         assert forced == ("S", whole)
-    else:  # the 384x384 crop and the panoramas: never staged in bands
+    else:  # the 384x384 crop, the 640x480 and 346x260 cameras and the panoramas
         with pytest.raises(ValueError, match="cannot be staged whole"):
             cuda_iwe.plan_vote_bwd(b, n, H, W, SMS, OPTIN, variant="S")
     if plan.variant == "S":  # whole images, one block each
