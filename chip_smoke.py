@@ -210,7 +210,38 @@ Phases, in order; any failure exits non-zero:
    entries and their bytes, peak memory and the RMS both ways. Phase 3
    also holds K1 and K2 at these presets' packet shapes (default_sweep /
    default_packet: 9 / 1 x 30 000 on 180x240, synth_sweep / synth_packet:
-   9 / 1 x 70 000 on 480x640, live_packet: 1 x 5 000 on 260x346).
+   9 / 1 x 70 000 on 480x640, live_packet: 1 x 5 000 on 260x346);
+10. options: every solver option of the configuration that no other phase
+   sets (run_options_phase, OPTION_RUNS), each a first run of its
+   configuration on phase 4's 2.0 s stream and stock ijrr preset through
+   run_system with phase 4's path checks (every solve a captured graph, no
+   front-end wait, the back-end's waits bounded, no synchronizing call
+   outside the captures, BA in >= 15 windows, K1, K2, K4, K5 and the loop
+   predicate launched): mean_square and gradient_magnitude (both
+   contrast_measure 1 / 2, RMS under their gate G; the crop halo h = r + 1
+   printed), polak_ribiere (both cg_variant "pr"), fe_sequential (the
+   front-end's ladder "sequential"; predicate executions beside phase
+   4's), grid (both ladders "grid"), coarse_to_fine (and
+   tests/test_frontend.py's cold start on the front-end alone: omega [2.0,
+   -3.5, 4.0], 8 000-event packets, median error < 0.25 rad/s), full_pano
+   (crop_solver=False: no crop window, every window solve a full-panorama
+   program), each RMS < 0.3 deg; trust (max_ba_correction_rad = C,
+   TRUST_FRACTION of phase 4's first window's largest knot correction,
+   which phase 4 prints per window: between 1 and windows - 1 windows
+   rejected, the bootstrap re-solves' rejections counted besides in
+   backend.ba_rejected, each rejection leaving IG and update_times
+   torch.equal to what they were before it); refine_prior (run_cli with
+   --set backend.refine_prior_lambda=100: phase 5's checks, and a window
+   program of that prior built by the refine pass). Then ecrot_full_pano
+   (run_ecrot_full_pano): ecrot_real_config() with crop_solver=False on
+   the ecrot phase's stream (reused): phase 8's gates, BA in >= 5 windows, every window objective
+   on the 2048x4096 panorama blurred by shift-and-add, K4/K5 launched on
+   it; K4 and K5 on the widest full-panorama program's last window
+   (about 10^6 events) against their plain version (shape "ecrot_pano"),
+   and that program's own objective captured against the plain route on
+   the card (value rtol 2e-5, gradient 2e-3 of its scale + 2e-6). Each run
+   prints its wall, captures, the pool's new entries and bytes, peak
+   memory, the RMS both ways and its launches.
 
 With ``--parent DIR`` (an unpacked checkout of another commit) phase 3
 also builds the parent's csrc/iwe.cu and, where it differs from this
@@ -230,7 +261,8 @@ Before the last line it prints one JSON object with every kernel's route,
 source, launches on each path (the system runs of phase 4, its derivative
 images, the small ring, the cubic system, the resume pair, the CLI run of
 phase 5, the second batched call of phase 6, the window and replay runs
-of phase 7, the three runs of phase 8 and the three of phase 9, each
+of phase 7, the three runs of phase 8, the three of phase 9 and the ten
+of phase 10, each
 counted from 0), error, times and bound, and the same per
 variant (K1: G, P), with K1's launches on the system path by shape bucket;
 K3's launches are those of the derivative-images path; K4's and K5's by
@@ -247,6 +279,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1477,6 +1510,55 @@ def _spy_steps(be) -> list:
     return returned
 
 
+def _spy_rejected_maps(be, rec: list):
+    """Keep on the device, for each window solve of the back-end ``be`` that
+    max_ba_correction_rad rejects (Backend._finish_solve), its (index, IG
+    and update_times before it, the same after it) in ``rec``, compared
+    after the run. Returns the function that removes the spy."""
+    finish = be._finish_solve
+
+    def finished(p):
+        before = (be.IG.clone(), be.update_times.clone())
+        out = finish(p)
+        if out[3]:
+            rec.append((p["index"], *before, be.IG.clone(), be.update_times.clone()))
+        return out
+
+    be._finish_solve = finished
+    return lambda: delattr(be, "_finish_solve")
+
+
+def window_corrections(slam) -> list:
+    """Each window solve of the run in order (the one-time bootstrap
+    re-solve's at the window that ran it): its index, its pass ("online" or
+    "bootstrap"), whether max_ba_correction_rad rejected it, and its largest
+    knot correction in deg (WindowResult.correction_rad, the angle that cap
+    is held to)."""
+    be = slam.backend
+    online = [r for r in slam.window_results() if r.ran_ba]
+    boot = [r for r in be.bootstrap_results if r.ran_ba]
+    at = be.cfg.bootstrap_resolve_window
+    rows = [("online", r) for r in online if at is None or r.index < at]
+    rows += [("bootstrap", r) for r in boot]
+    rows += [("online", r) for r in online if at is not None and r.index >= at]
+    return [{"index": r.index, "pass": kind, "deg": math.degrees(r.correction_rad),
+             "rejected": r.rejected} for kind, r in rows]
+
+
+def trust_cap_deg(corrections: list) -> float:
+    """The trust run's cap C in deg: TRUST_FRACTION of the largest knot
+    correction of a stock run's first online window (``window_corrections``).
+    That window solves against an empty map from the front-end's
+    trajectory, so its correction varies little between runs (0.158-0.168
+    deg in the stock runs of phase 4 measured on an H100, where the median
+    over a run's windows ranged 0.066-0.135). Rejections cascade (a rejected
+    window leaves the next one farther from its optimum), so the count a
+    cap gives is measured, not derived: at 0.6 of it the trust run
+    rejected 5-13 of its 18 windows in 6 runs (PERF.md §7)."""
+    first = min((c for c in corrections if c["pass"] == "online"), key=lambda c: c["index"])
+    return TRUST_FRACTION * first["deg"]
+
+
 def _site(frame, skip=()) -> str:
     """'file:line function' of the first frame from ``frame`` outward whose
     function is not in ``skip``, the file relative to the checkout."""
@@ -1688,16 +1770,19 @@ def _spy_fwd_shapes(tally: dict, cam_hw, pano_hw, pano_tally: dict | None = None
 
 def run_system(device: str = "cuda", overrides=None, label: str = "system",
                duration: float = 2.0, shapes: dict | None = None, audit: bool = False,
-               pano_shapes: dict | None = None):
-    """Phase 4 (and the cubic phase): the stock preset, with ``overrides``
-    (dotted config keys), through the public entry points. Returns
-    (launches during the run, {check: passed}, the (T, 4) ang_vel_log, the
-    wall in s without the ring-packet checks, the CMaxSLAM, _graph_stats).
-    The wall runs from the first push to the last result on the host: the
-    pushes, the flush of the window in flight and the ang-vel log.
-    ``shapes``, if given, is filled with the run's K1 launches by shape
-    bucket (``_spy_fwd_shapes``); ``audit`` counts the host's waits in the
-    push loop (SyncAudit)."""
+               pano_shapes: dict | None = None, min_ba: int = 15,
+               rms_deg: float | None = 0.3):
+    """Phase 4 (and the cubic and option runs): the stock preset, with
+    ``overrides`` (dotted config keys), through the public entry points.
+    Returns (launches during the run, {check: passed}, the (T, 4)
+    ang_vel_log, the wall in s without the ring-packet checks, the
+    CMaxSLAM, _graph_stats). The wall runs from the first push to the last
+    result on the host: the pushes, the flush of the window in flight and
+    the ang-vel log. ``shapes``, if given, is filled with the run's K1
+    launches by shape bucket (``_spy_fwd_shapes``); ``audit`` counts the
+    host's waits in the push loop (SyncAudit); the run must take BA in
+    ``min_ba`` windows and track the truth within ``rms_deg`` (None: no
+    gate)."""
     from cmax_slam_tpu_torch.config import ijrr_config, replace
 
     overrides = dict(overrides or {})
@@ -1708,9 +1793,9 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
     cfg = replace(ijrr_config(), **overrides)
     launches, checks, log, wall, slam, graphs = drive(
         cfg, ev, omega, calib, device, label, duration, len(ev.ts), PUSH_EVENTS, shapes,
-        audit, pano_shapes)
+        audit, pano_shapes, rms_deg=rms_deg)
     n_ba = sum(w.ran_ba for w in slam.window_results())
-    checks[">= 15 BA windows"] = n_ba >= 15
+    checks[f">= {min_ba} BA windows"] = n_ba >= min_ba
     checks["spline order"] = (
         slam.backend.traj.order == (4 if overrides.get(CUBIC_KEY) == 3 else 2))
     return launches, checks, log, wall, slam, graphs
@@ -1718,19 +1803,25 @@ def run_system(device: str = "cuda", overrides=None, label: str = "system",
 
 def drive(cfg, ev, omega, calib, device: str, label: str, duration: float, n: int,
           push: int, shapes: dict | None = None, audit: bool = False,
-          pano_shapes: dict | None = None, spy=None):
+          pano_shapes: dict | None = None, spy=None, rms_deg: float | None = 0.3):
     """One CMaxSLAM of ``cfg`` fed the first ``n`` events of the stream
     ``ev`` (true angular velocity ``omega``; ``duration`` s of it) through
     push_events in pushes of ``push`` events, with the packet, step, shape,
-    sync and scan spies of phase 4; ``spy(slam)``, if given, is called
-    before the run and returns a function called after it. Returns what
-    run_system returns, the checks common to every preset's run."""
+    sync and scan spies of phase 4; ``spy(slam)``, if given, is
+    called before the run and returns a function called after it. Returns
+    what run_system returns, the checks common to every preset's run (RMS
+    against the truth under ``rms_deg``, unless None); with
+    max_ba_correction_rad set, also that each rejected window left the
+    maps torch.equal to what they were before it."""
     import torch
     from cmax_slam_tpu_torch.system import CMaxSLAM
 
     slam = CMaxSLAM(calib, cfg, device=device)
     tally = _spy_packets(slam.frontend)
     returned = _spy_steps(slam.backend)
+    trusted = cfg.backend.max_ba_correction_rad is not None
+    rejected_maps = []
+    unspy = _spy_rejected_maps(slam.backend, rejected_maps) if trusted else (lambda: None)
     after = spy(slam) if spy is not None else (lambda: None)
     pano = cfg.backend.pano_map
     restore = (_spy_fwd_shapes(shapes, (calib.height, calib.width),
@@ -1757,6 +1848,7 @@ def drive(cfg, ev, omega, calib, device: str, label: str, duration: float, n: in
         restore()
     wall = time.perf_counter() - t0 - tally["s"]
     after()
+    unspy()
     _read_spy(tally)
     launches = _launches()
     graphs = _graph_stats(slam, device, loop, sync_audit)
@@ -1768,6 +1860,7 @@ def drive(cfg, ev, omega, calib, device: str, label: str, duration: float, n: in
     n_ba = sum(w.ran_ba for w in wins)
     rms, rms_raw = _rms_vs_truth(be.traj, omega)
     graphs["rms_deg"], graphs["rms_unnormalized_deg"] = rms, rms_raw
+    graphs["corrections"] = window_corrections(slam)
     counters = slam.metrics.counters
     timers = {k: round(v.total, 3) for k, v in slam.metrics.timers.items()}
     _log(f"{label}: wall {wall:.2f} s for {duration} s of stream (and {tally['s']:.2f} s "
@@ -1784,6 +1877,9 @@ def drive(cfg, ev, omega, calib, device: str, label: str, duration: float, n: in
          f"{graphs['backend_waits']} ({graphs['host_reads_per_window']:.4f} per completed "
          f"window, {graphs['resolves']} synchronous re-solves); sync-debug "
          f"{json.dumps(graphs.get('audit'))}")
+    _log(f"{label}: largest knot correction per window in deg (index, pass, rejected) "
+         + ", ".join(f"{c['index']} {c['pass']}{' rejected' if c['rejected'] else ''} "
+                     f"{c['deg']:.5f}" for c in graphs["corrections"]))
     _log(f"{label}: trigger scans through the host library {launches['host_scan_triggers']} "
          f"for {pushes} pushes ({scan['triggers']} triggers, {scan['events_per_call']} stored "
          f"events per scan); host us per scan {scan['in_run_us_per_call']:.2f} in the run, "
@@ -1798,11 +1894,17 @@ def drive(cfg, ev, omega, calib, device: str, label: str, duration: float, n: in
             launches["host_scan_triggers"] == scan["calls"] == pushes > 0),
         "library scans equal the plain version's": scan["equal"],
         "finite omega log": log.shape[1] == 4 and bool(np.isfinite(log).all()),
-        "RMS < 0.3 deg": rms < 0.3,
         "each window returned once by step/flush": (
             returned + ([tail.index] if tail is not None else []) == [w.index for w in wins]),
     }
+    if rms_deg is not None:
+        checks[f"RMS < {rms_deg} deg"] = rms < rms_deg
     checks |= _graph_checks(graphs, cfg, device)
+    if trusted:
+        checks["a rejected window leaves IG and update_times torch.equal to before it"] = all(
+            torch.equal(a, c) and torch.equal(b, d)
+            for _, a, b, c, d in rejected_maps)
+        graphs["rejected_windows"] = [m[0] for m in rejected_maps]
     if cfg.frontend.device_store:  # the stock schedule gathers from the ring
         checks["packets gathered from the ring"] = (
             tally["ring"] == counters["frontend.ring_packets"] > 0)
@@ -2107,10 +2209,12 @@ def run_resume(device: str = "cuda", duration: float = 1.0):
     return launches, checks
 
 
-def run_cli(device: str = "cuda", duration: float = 2.0):
+def run_cli(device: str = "cuda", duration: float = 2.0, extra: tuple = (),
+            label: str = "cli"):
     """Phase 5: the port's CLI on the make_stream recording written as an
-    IJRR text file, stock ijrr preset. Returns (launches during the full
-    run, {check: passed})."""
+    IJRR text file, stock ijrr preset, ``extra`` arguments (e.g. --set)
+    added to each of its runs. Returns (launches during the full run,
+    {check: passed})."""
     from cmax_slam_tpu_torch import cli, spline
     from cmax_slam_tpu_torch.frontend import Frontend
     from cmax_slam_tpu_torch.io.streams import iter_events
@@ -2128,15 +2232,15 @@ def run_cli(device: str = "cuda", duration: float = 2.0):
         calib_txt = os.path.join(tmp, "calib.txt")
         with open(calib_txt, "w") as f:
             f.write(f"{K[0, 0]} {K[1, 1]} {K[0, 2]} {K[1, 2]} 0 0 0 0 0\n")
-        _log(f"cli: wrote {n} events to a text file in {time.perf_counter() - t0:.2f} s")
+        _log(f"{label}: wrote {n} events to a text file in {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
         n_parsed = sum(len(c[2]) for c in iter_events(events, 1 << 16))
-        _log(f"cli: text parse alone {time.perf_counter() - t0:.2f} s for {n_parsed} events")
+        _log(f"{label}: text parse alone {time.perf_counter() - t0:.2f} s for {n_parsed} events")
 
-        def argv(out, *extra):
+        def argv(out, *more):
             return ["--device", device, "--events", events, "--calib", calib_txt,
                     "--width", str(calib.width), "--height", str(calib.height),
-                    "--preset", "ijrr", "--out-dir", os.path.join(tmp, out), *extra]
+                    "--preset", "ijrr", "--out-dir", os.path.join(tmp, out), *extra, *more]
 
         # K1 launches inside the IWE-pair renders, counted apart.
         render_launches = [0]
@@ -2185,17 +2289,17 @@ def run_cli(device: str = "cuda", duration: float = 2.0):
         t_res, q_res = read_tum_trajectory(os.path.join(tmp, "resume", "trajectory_tum.txt"))
         stats_res = json.load(open(os.path.join(tmp, "resume", "stats.json")))
         timers = {k: round(v["total_s"], 3) for k, v in stats["metrics"]["timers"].items()}
-        _log("cli: host waits of the full run (the renders, checkpoints and refine included) "
+        _log(f"{label}: host waits of the full run (the renders, checkpoints and refine included) "
              + json.dumps(audit.report(stats["metrics"]["counters"].get("frontend.launches", 0),
                                        stats["windows"])))
-        _log(f"cli: full run rc {rc} wall {walls['full']:.2f} s "
+        _log(f"{label}: full run rc {rc} wall {walls['full']:.2f} s "
              f"(events_per_second {stats['events_per_second']:.0f}, "
              f"{stats['events']} events, {stats['windows']} windows, "
              f"{stats['ang_vel_estimates']} packets); trajectory_tum RMS {rms:.4f} deg; "
              f"launches {launches}, K1 in IWE renders {render_launches[0]}; "
              f"timers_s {json.dumps(timers)}; "
              f"counters {json.dumps(stats['metrics']['counters'])}")
-        _log(f"cli: cut at {cut} events rc {rc_cut} wall {walls['cut']:.2f} s; resumed rc "
+        _log(f"{label}: cut at {cut} events rc {rc_cut} wall {walls['cut']:.2f} s; resumed rc "
              f"{rc_resume} wall {walls['resume']:.2f} s "
              f"(events_per_second {stats_res['events_per_second']:.0f}), "
              f"{len(av_cut)} + {len(av_res)} packets of {len(av_full)}")
@@ -2572,7 +2676,7 @@ ECROT_SHED = {"frontend_event_sample_rate": 10, "frontend.num_events_per_packet"
               "backend.warp.event_sample_rate": 5}
 
 
-@functools.lru_cache(maxsize=1)
+@functools.lru_cache(maxsize=2)  # the ecrot phase's stream stays for the options phase
 def make_ecrot_stream(duration: float = ECROT_DURATION, rate: int = ECROT_RATE):
     """examples/tpu_ecrot_realtime_check.py's stream: a 640x480 pinhole
     (fx = fy = 335, centred), omega = [0.5, -0.9, 1.3], 1200 landmarks in
@@ -3031,6 +3135,22 @@ def _objective_cases(slam, ev) -> dict:
     return cases
 
 
+def _objective_program(vg, x, name: str):
+    """A device program of one evaluation of ``vg`` at ``x`` (1, D): its
+    ``out`` holds the value and the gradient, captured at its first run."""
+    import torch
+    from cmax_slam_tpu_torch.ops import device_loop
+
+    def build(b):
+        def seg():
+            v, g = vg(x)
+            prog.out.copy_(torch.cat([v, g[0]]))
+        b.seg(seg)
+
+    prog = device_loop.Program(build, 1 + x.shape[1], "cuda", name=name)
+    return prog
+
+
 def check_captured_objectives(slam, ev) -> dict:
     """A captured evaluation (value and gradient) of the packet objective
     (K1 and K2 inside the graph) against the same objective on the plain
@@ -3040,7 +3160,7 @@ def check_captured_objectives(slam, ev) -> dict:
     K4/K5. The votes sum with atomics in a run-dependent order: f within
     rtol 1e-5, g within rtol 2e-3, atol 2e-6 of its scale."""
     import torch
-    from cmax_slam_tpu_torch.ops import device_loop, scatter, warp_local
+    from cmax_slam_tpu_torch.ops import scatter, warp_local
 
     cases = _objective_cases(slam, ev)
     refs = {}
@@ -3056,15 +3176,7 @@ def check_captured_objectives(slam, ev) -> dict:
         if name not in cases:
             continue
         _, vg, x, images = cases[name]
-        D = x.shape[1]
-
-        def build(b):
-            def seg():
-                v, g = vg(x)
-                prog.out.copy_(torch.cat([v, g[0]]))
-            b.seg(seg)
-
-        prog = device_loop.Program(build, 1 + D, "cuda", name=f"objective_{name}")
+        prog = _objective_program(vg, x, f"objective_{name}")
         with _images_by(images):  # the capture at the first run takes the design
             got = prog.run().fetch()
         against = [refs["packet"]] if name == "packet" else []
@@ -3500,7 +3612,7 @@ def run_preset(name: str, device: str = "cuda", stream: dict | None = None,
     (launches, checks, stats)."""
     import torch
     from cmax_slam_tpu_torch import cli, spline
-    from cmax_slam_tpu_torch.ops import blur, program_pool
+    from cmax_slam_tpu_torch.ops import blur
     from cmax_slam_tpu_torch.utils.evaluate import read_tum_trajectory, rotation_rms_deg
 
     run = PRESET_RUNS[name]
@@ -3513,7 +3625,7 @@ def run_preset(name: str, device: str = "cuda", stream: dict | None = None,
         ev, omega, calib = make_stream(**kw)
     gen_s = time.perf_counter() - t0
     n, span = len(ev.ts), kw["duration"]
-    pool0 = {id(e) for group in list(program_pool.ENTRIES.values()) for e in group}
+    pool0 = _pool_ids()
     rec, audit = {}, SyncAudit(device)
     with tempfile.TemporaryDirectory(prefix="cmax_preset_") as tmp:
         t0 = time.perf_counter()
@@ -3578,8 +3690,6 @@ def run_preset(name: str, device: str = "cuda", stream: dict | None = None,
     chunks = -(-n // chunk)
     omega_err = np.linalg.norm(av[:, 1:] - omega, axis=1)
     cap = cfg.backend.pano_map.max_update_times
-    new_entries = [e for group in list(program_pool.ENTRIES.values()) for e in group
-                   if id(e) not in pool0]
     graphs |= {
         "wall_s": wall, "stream_s": span, "realtime_factor": span / wall, "raw_events": n,
         "events_per_second": stats["events_per_second"], "generate_s": gen_s,
@@ -3598,11 +3708,9 @@ def run_preset(name: str, device: str = "cuda", stream: dict | None = None,
         "launches": {k: launches[k] for k in ("fwd_P", "fwd_G", "bwd_S", "bwd_G", "pano_fwd",
                                               "pano_bwd")},
         "omega_err_median": float(np.median(omega_err)), "omega_err_max": float(omega_err.max()),
-        "new_pool_entries": [{"kind": str(e.key[0]), "programs": len(e.programs),
-                              "state_bytes": e.state_bytes(), "allocated_bytes": e.allocated,
-                              "reserved_bytes": e.reserved} for e in new_entries],
+        "new_pool_entries": _new_entries(pool0),
         "rms_deg": rms, "rms_unnormalized_deg": rms_raw}
-    del slam, be, fe, rec["slam"], new_entries
+    del slam, be, fe, rec["slam"]
     _log(f"{label}: rc {rc}, wall {wall:.3f} s for {span} s of stream, realtime factor "
          f"{span / wall:.4f}, events_per_second {stats['events_per_second']:.0f} "
          f"({stats['events']} events read of {n}); timers {json.dumps(timers)}; packets "
@@ -3667,6 +3775,293 @@ def run_presets_phase(phase, graphs: dict) -> dict:
         out[f"preset_{name}"] = launches
     _log(f"presets: the phase took {time.perf_counter() - t0:.1f} s, the streams' generation "
          f"and writing included")
+    return out
+
+
+# The options phase: every solver option of the configuration that no other
+# phase sets, each on phase 4's stream and stock ijrr preset with its
+# dotted-key overrides, through the same entry points and path checks
+# (run_system), and the full 2048x4096 panorama at ECRot scale
+# (run_ecrot_full_pano). "rms_deg" is each run's RMS gate against the
+# truth; for the two other contrast measures it is G: 0.3 deg where the JAX
+# package on the CPU tests' stream tracks under 0.15 deg, else twice its
+# figure (tests/test_torch_options.py's stream: mean square 0.0732,
+# gradient magnitude 0.0703 deg, so 0.3 both). "trust" takes its cap C at
+# run time (trust_cap_deg of phase 4's corrections: None below stands for
+# it), "refine_prior" runs through cli.main as phase 5 (run_cli).
+OPTION_RUNS = {
+    "mean_square": {"overrides": {"frontend.contrast_measure": 1,
+                                  "backend.contrast_measure": 1}, "rms_deg": 0.3},
+    "gradient_magnitude": {"overrides": {"frontend.contrast_measure": 2,
+                                         "backend.contrast_measure": 2}, "rms_deg": 0.3},
+    "polak_ribiere": {"overrides": {"frontend.optim.cg_variant": "pr",
+                                    "backend.optim.cg_variant": "pr"}, "rms_deg": 0.3},
+    "fe_sequential": {"overrides": {"frontend.optim.ladder": "sequential"}, "rms_deg": 0.3},
+    "grid": {"overrides": {"frontend.optim.ladder": "grid", "backend.optim.ladder": "grid"},
+             "rms_deg": 0.3},
+    "coarse_to_fine": {"overrides": {"frontend.coarse_to_fine": True}, "rms_deg": 0.3},
+    "full_pano": {"overrides": {"backend.crop_solver": False}, "rms_deg": 0.3},
+    "trust": {"overrides": {"backend.max_ba_correction_rad": None}, "rms_deg": None},
+    "refine_prior": {"overrides": {"backend.refine_prior_lambda": 100.0}, "cli": True},
+}
+OPTION_DURATION = 2.0  # stream seconds of each ijrr option run (phase 4's)
+OPTION_MIN_BA = 15  # of the 18 windows of 2.0 s, as phase 4
+TRUST_FRACTION = 0.6  # of phase 4's first window's correction: the trust run's cap C
+
+
+def cold_start_frontend(device: str = "cuda") -> dict:
+    """tests/test_frontend.py's coarse-to-fine cold start on the port's
+    front-end alone: omega [2.0, -3.5, 4.0] (5.7 rad/s) on 240x180 (fx = fy
+    = 180), 30 000 events over 0.12 s from seed 42 (300 landmarks), 8 000-event
+    packets every 0.02 s, the first from omega = 0. Returns the errors and
+    {check: passed} (median error < 0.25 rad/s, at least 3 packets)."""
+    from cmax_slam_tpu_torch.config import FrontendConfig, WarpOptions
+    from cmax_slam_tpu_torch.frontend import Frontend
+    from cmax_slam_tpu_torch.io import synthetic
+    from cmax_slam_tpu_torch.ops.warp_local import CameraParams
+
+    W, H, F = 240, 180, 180.0
+    omega = np.array([2.0, -3.5, 4.0])
+    ev = synthetic.rotating_camera_events(np.random.default_rng(42), 30000, 0.12, omega,
+                                          F, F, W / 2, H / 2, W, H, n_points=300)
+    cfg = FrontendConfig(num_events_per_packet=8000, dt_ang_vel=0.02,
+                         warp=WarpOptions(blur_sigma=1.0, event_batch_size=100),
+                         coarse_to_fine=True)
+    fe = Frontend(CameraParams(fx=F, fy=F, cx=W / 2, cy=H / 2, width=W, height=H),
+                  synthetic.identity_lut(W, H, F, F, W / 2, H / 2), cfg, device=device)
+    fe.push_events(ev.xs, ev.ys, ev.ts, ev.pols)
+    errs = [float(np.linalg.norm(e.omega - omega)) for e in fe.estimates]
+    out = {"errors": errs, "median": float(np.median(errs)) if errs else float("nan")}
+    _log(f"coarse_to_fine cold start (front-end alone, {len(errs)} packets): omega errors "
+         f"{np.round(errs, 4).tolist()} rad/s, median {out['median']:.4f}")
+    return out | {"checks": {">= 3 cold-start packets": len(errs) >= 3,
+                             "cold-start median omega error < 0.25 rad/s": out["median"] < 0.25}}
+
+
+def _pool_ids() -> set:
+    from cmax_slam_tpu_torch.ops import program_pool
+
+    return {id(e) for group in list(program_pool.ENTRIES.values()) for e in group}
+
+
+def _new_entries(before: set) -> list:
+    """The pool's entries made since ``before`` (_pool_ids), with their
+    programs and bytes."""
+    from cmax_slam_tpu_torch.ops import program_pool
+
+    return [{"kind": str(e.key[0]), "programs": len(e.programs),
+             "state_bytes": e.state_bytes(), "allocated_bytes": e.allocated,
+             "reserved_bytes": e.reserved}
+            for group in list(program_pool.ENTRIES.values()) for e in group
+            if id(e) not in before]
+
+
+def run_option(name: str, device: str = "cuda", duration: float = OPTION_DURATION,
+               min_ba: int = OPTION_MIN_BA, cap_deg: float | None = None,
+               phase4_pred: int | None = None, overrides: dict | None = None):
+    """One run of the options phase: OPTION_RUNS[name] on ``duration`` s of
+    phase 4's stream (make_stream) with the stock ijrr preset, through
+    run_system (phase 4's path checks: every solve a graph, no front-end
+    wait, the back-end's waits bounded, no synchronizing call outside the
+    captures, BA in ``min_ba`` windows, K1, K2, K4, K5 and the loop
+    predicate launched), with ``overrides`` added (CPU rehearsals: a
+    smaller panorama); "refine_prior" through run_cli instead (phase 5's
+    checks). Each run's own gate: its RMS (OPTION_RUNS), and
+    gradient_magnitude: the crop halo h = r + 1; coarse_to_fine: the cold
+    start of cold_start_frontend; full_pano: no crop window, every window
+    solve a full-panorama program on the panorama; trust: ``cap_deg`` (C)
+    as max_ba_correction_rad, between 1 and windows - 1 windows rejected
+    and their maps left as they were; refine_prior: the refine pass ran a
+    window program with the prior's weight. Prints the wall, captures,
+    the pool's new entries and bytes, peak memory, the RMS both ways and
+    the launches; fe_sequential its loop predicate's executions beside
+    phase 4's (``phase4_pred``). Returns (launches, checks, stats)."""
+    from cmax_slam_tpu_torch.ops import blur, program_pool
+
+    run = OPTION_RUNS[name]
+    label = f"option_{name}"
+    opts = dict(run["overrides"])
+    if name == "trust":
+        opts["backend.max_ba_correction_rad"] = math.radians(cap_deg)
+        _log(f"{label}: cap C = {cap_deg:.6f} deg ({TRUST_FRACTION} of phase 4's first "
+             f"window's largest knot correction) = "
+             f"{opts['backend.max_ba_correction_rad']:.8f} rad")
+    pool0 = _pool_ids()
+    if run.get("cli"):
+        lam = opts["backend.refine_prior_lambda"]
+        arg = f"backend.refine_prior_lambda={json.dumps(lam)}"
+        launches, checks = run_cli(device, duration, extra=("--set", arg), label=label)
+        priors = sorted({k[5] for group in list(program_pool.ENTRIES.values()) for e in group
+                         if e.key[0] == "backend" for k in e.programs})
+        checks[f"the refine pass ran a window program of prior weight {lam}"] = lam in priors
+        stats = {"prior_weights_of_window_programs": priors,
+                 "new_pool_entries": _new_entries(pool0)}
+        _log(f"{label}: window programs' prior weights {priors}; new pool entries "
+             f"{json.dumps(stats['new_pool_entries'])}")
+        return launches, checks, stats
+    pano_buckets = {}
+    launches, checks, _, wall, slam, stats = run_system(
+        device, opts | dict(overrides or {}), label=label, duration=duration, audit=True,
+        shapes={}, pano_shapes=pano_buckets, min_ba=min_ba, rms_deg=run["rms_deg"])
+    be, counters = slam.backend, slam.metrics.counters
+    wins = slam.window_results()
+    solves = (sum(w.ran_ba for w in wins) + sum(w.ran_ba for w in be.bootstrap_results))
+    pano_hw = (be.pano.height, be.pano.width)
+    stats |= {"wall_s": wall, "stream_s": duration, "windows": len(wins),
+              "ba_windows_run": sum(w.ran_ba for w in wins), "window_solves": solves,
+              "crop_windows": counters.get("backend.crop_windows", 0),
+              "crop_escapes": counters.get("backend.crop_escapes", 0),
+              "rejected": counters.get("backend.ba_rejected", 0),
+              "crop_shapes": sorted(be._crop_shapes),
+              "blur_paths": {f"crop {h}x{w}": blur.blur_path(h, w)
+                             for h, w in sorted(be._crop_shapes)}
+              | {f"panorama {pano_hw[0]}x{pano_hw[1]}": blur.blur_path(*pano_hw)},
+              "pano_by_shape": pano_buckets, "new_pool_entries": _new_entries(pool0),
+              "launches": {k: launches[k] for k in ("fwd", "bwd", "pano_fwd", "pano_bwd")}}
+    _log(f"{label}: wall {wall:.3f} s for {duration} s of stream; windows {len(wins)} "
+         f"({stats['ba_windows_run']} with BA, {solves} window solves with the bootstrap's), "
+         f"crop windows {stats['crop_windows']}, escapes {stats['crop_escapes']}, rejected "
+         f"{stats['rejected']}; captures {json.dumps(stats['captures'])}; new pool entries "
+         f"{json.dumps(stats['new_pool_entries'])}; peak device memory "
+         f"{stats['peak_gib']:.3f} GiB; RMS {stats['rms_deg']:.4f} deg "
+         f"({stats['rms_unnormalized_deg']:.4f} unnormalized); launches K1 {launches['fwd']}, "
+         f"K2 {launches['bwd']}, K4 {launches['pano_fwd']}, K5 {launches['pano_bwd']}, loop "
+         f"predicate {stats['pred']}; K4/K5 by image {json.dumps(pano_buckets)}")
+    checks["loop predicate ran"] = device != "cuda" or stats["pred"] > 0
+    if name == "gradient_magnitude":
+        r = blur.opencv_ksize(be.cfg.warp.blur_sigma) // 2
+        stats["crop_halo"] = be._crop_halo()
+        _log(f"{label}: the crop objective's halo h = {stats['crop_halo']} (blur radius r = {r})")
+        checks["crop halo h = r + 1"] = stats["crop_halo"] == r + 1
+    if name == "fe_sequential":
+        _log(f"{label}: loop predicate executions {stats['pred']} against phase 4's "
+             f"{phase4_pred}")
+    if name == "coarse_to_fine":
+        cold = cold_start_frontend(device)
+        stats["cold_start"] = {k: cold[k] for k in ("errors", "median")}
+        checks |= cold["checks"]
+    if name == "full_pano":
+        runs = stats["runs"]
+        checks["no crop window counted"] = stats["crop_windows"] == 0 == stats["crop_escapes"]
+        checks["every window solved on the full panorama"] = (
+            not stats["crop_shapes"] and not any(" crop" in b for b in pano_buckets)
+            and (device != "cuda" or runs.get("backend.crop", 0) == 0
+                 and runs.get("backend.full", 0) == solves > 0))
+    if name == "trust":
+        online = sum(w.rejected for w in wins)
+        boot = sum(w.rejected for w in be.bootstrap_results)
+        stats |= {"cap_deg": cap_deg, "rejected_online": online, "rejected_bootstrap": boot}
+        _log(f"{label}: rejected {online} of {len(wins)} windows and {boot} of "
+             f"{len(be.bootstrap_results)} bootstrap re-solves (backend.ba_rejected "
+             f"{stats['rejected']:.0f} of {solves} window solves)")
+        checks[f"rejected windows between 1 and {len(wins) - 1}"] = 1 <= online <= len(wins) - 1
+        checks["each rejection counted and its maps kept"] = (
+            online + boot == stats["rejected"] == len(stats["rejected_windows"]))
+    del slam, be
+    return launches, checks, stats
+
+
+def captured_window_objective(solver, scale: float = 1e-3) -> dict:
+    """The value and gradient of a full-panorama window program's own
+    objective (``solver.cg.vg``: K4/K5, the blur, the contrast) on the
+    window loaded into it last, at increments of ``scale``, as one captured
+    evaluation, against the same function evaluated eagerly on the plain
+    route on the card (warp_pano.pano_vote_plain and autograd, through the
+    same blur): value within rtol 2e-5, gradient within 2e-3 of its scale +
+    2e-6. Returns the errors, the tolerances and ok."""
+    import torch
+    from cmax_slam_tpu_torch.ops import warp_pano
+
+    vg = solver.cg.vg
+    x = torch.full((1, 3 * solver.win.knots.shape[0]), scale, device="cuda")
+    prog = _objective_program(vg, x, "objective_window_full")
+    got = prog.run().fetch()
+    with _images_by(warp_pano.pano_vote_plain):
+        v, g = vg(x)
+    ref = torch.cat([v, g[0]]).detach().cpu().numpy()
+    f_err = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
+    g_err = float(np.abs(got[1:] - ref[1:]).max())
+    g_scale = float(np.abs(ref[1:]).max())
+    g_tol = 2e-3 * g_scale + 2e-6
+    out = {"f": float(got[0]), "f_plain": float(ref[0]), "f_rel_err": f_err,
+           "g_abs_err": g_err, "g_scale": g_scale, "g_tol": g_tol,
+           "ok": bool(f_err <= 2e-5 and g_err <= g_tol and np.isfinite(got).all())}
+    del prog
+    return out
+
+
+def run_ecrot_full_pano(pano: dict, rng, floor_ms: float, device: str = "cuda"):
+    """The options phase's ECRot run: ecrot_real_config() with
+    backend.crop_solver=False on the ecrot phase's stream (make_ecrot_stream,
+    cached) through run_ecrot (phase 8's spies and gates, RMS < 0.3 deg),
+    BA in all windows but one, every window solve a full-panorama program
+    whose objective blurs by shift-and-add, K4/K5 launched on the
+    panorama. Then, on the window loaded last into the widest
+    full-panorama program (about 10^6 events, 2048x4096, order 2): K4 and
+    K5 against their plain version as phase 3 holds them (into ``pano``'s
+    shapes as "ecrot_pano"), and the program's own objective captured
+    against the plain route (captured_window_objective). Returns
+    (launches, checks, stats)."""
+    from cmax_slam_tpu_torch.ops import program_pool
+
+    label = "ecrot_full_pano"
+    windows = round(ECROT_DURATION / 0.2)
+    buckets, pano_buckets = {}, {}
+    launches, checks, stats, slam = run_ecrot(
+        device, label, overrides={"backend.crop_solver": False}, min_ba=windows - 1,
+        shapes=buckets, pano_shapes=pano_buckets)
+    be = slam.backend
+    pano_hw = (be.pano.height, be.pano.width)
+    solves = (sum(w.ran_ba for w in slam.window_results())
+              + sum(w.ran_ba for w in be.bootstrap_results))
+    stats |= {"k1_by_shape": buckets, "pano_by_shape": pano_buckets}
+    checks["every window objective blurs by shift-and-add"] = (
+        not stats["crop_shapes"] and set(stats["blur_paths"].values()) == {"shift_add"})
+    checks["every window solved on the full panorama"] = (
+        not stats["crop_shapes"] and (device != "cuda" or stats["window_solves"]["crop"] == 0
+                                      and stats["window_solves"]["full"] == solves > 0))
+    checks["K4 and K5 launched on the panorama"] = all(
+        pano_buckets.get(f"{k} panorama", {}).get("launches", 0) > 0
+        for k in ("pano_fwd", "pano_bwd"))
+    _log(f"{label}: K4/K5 launches by image {json.dumps(pano_buckets)}; K1 by shape "
+         f"{json.dumps(buckets)}")
+    if device == "cuda":
+        solver = max((s for key, s in be._entry.programs.items() if key[3] is None),
+                     key=lambda s: s.win.weights.shape[0])
+        pano_check(pano, "ecrot_pano", be.order, 1, solver.win, be.pano, solver.basis, None,
+                   ("full", *pano_hw), rng, floor_ms)
+        stats["captured_objective"] = cap = captured_window_objective(solver)
+        _log(f"{label}: the widest full-panorama program's objective ("
+             f"{solver.win.weights.shape[0]} events, {pano_hw[0]}x{pano_hw[1]}) captured "
+             f"against the plain route: {json.dumps(cap)}")
+        checks["captured window objective matches the plain route"] = cap["ok"]
+        del solver
+    stats["pool"] = program_pool.stats(detail=True)
+    _log(f"{label}: the pool {json.dumps(stats['pool'])}; peak device memory "
+         f"{stats['peak_gib']:.3f} GiB")
+    del slam, be
+    return launches, checks, stats
+
+
+def run_options_phase(phase, graphs: dict, pano: dict, rng, floor_ms: float) -> dict:
+    """The options phase (after presets): run_option for each of OPTION_RUNS
+    and run_ecrot_full_pano, each through main's ``phase`` wrapper (pooled
+    programs, pool and peak memory printed, checks required); the trust
+    run's cap C is trust_cap_deg of phase 4's corrections
+    (``graphs["system"]``). Each run's stats into ``graphs`` under
+    "option_<name>" (not the CLI's). Returns the launches by path."""
+    out, t0 = {}, time.perf_counter()
+    cap = trust_cap_deg(graphs["system"]["corrections"])
+    for name in OPTION_RUNS:
+        launches, _, stats = phase(f"option_{name}", run_option, name, cap_deg=cap,
+                                   phase4_pred=graphs["system"]["pred"])
+        out[f"option_{name}"] = launches
+        if not OPTION_RUNS[name].get("cli"):
+            graphs[f"option_{name}"] = stats
+    launches, _, graphs["ecrot_full_pano"] = phase("ecrot_full_pano", run_ecrot_full_pano,
+                                                   pano, rng, floor_ms)
+    out["ecrot_full_pano"] = launches
+    _log(f"options: the phase took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -3859,6 +4254,7 @@ def main() -> int:
     replay_launches = phase("replay", run_replay)[0]
     ecrot_launches = run_ecrot_phase(phase, graphs, pano, rng, kernels["bwd"]["floor_ms"])
     preset_launches = run_presets_phase(phase, graphs)
+    option_launches = run_options_phase(phase, graphs, pano, rng, kernels["bwd"]["floor_ms"])
     loop_turns = walls = None
     if parent is not None:  # the loop and phase 4's wall against another commit, in turns
         loop_turns = loop_in_turns(parent, card)
@@ -3884,7 +4280,7 @@ def main() -> int:
              "ring_wrap": ring_launches, "cubic": cubic_launches,
              "resume": resume_launches, "cli": cli_launches, "batched": batched_launches,
              "window_shard": shard_launches, "replay": replay_launches} | ecrot_launches
-    paths |= preset_launches
+    paths |= preset_launches | option_launches
 
     def by_path(key):
         return {p: counts[key] for p, counts in paths.items()}
@@ -3966,6 +4362,9 @@ def main() -> int:
             "launches_by_shape": {b: t for b, t in pano_buckets.items() if b.startswith(k)},
             "launches_by_shape_ecrot": {b: t for b, t in graphs["ecrot"]["pano_by_shape"].items()
                                         if b.startswith(k)},
+            "launches_by_shape_ecrot_full_pano": {
+                b: t for b, t in graphs["ecrot_full_pano"]["pano_by_shape"].items()
+                if b.startswith(k)},
             "max_abs_err": v["max_abs_err"], "ms": v["ms"], "device_ms": v["device_ms"],
             "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None, "floor_ms": v["floor_ms"], "shape": v["shape"],

@@ -80,6 +80,10 @@ class WindowResult:
     # True when the BA correction was rejected by the max_ba_correction_rad
     # trust region (the front-end knots were kept, the map not updated).
     rejected: bool = False
+    # The solve's largest knot correction (rad): the angle between a knot
+    # the window started from and the same knot solved, at most over the
+    # window's knots, the angle max_ba_correction_rad is held to. 0 without BA.
+    correction_rad: float = 0.0
 
 
 class Backend:
@@ -293,8 +297,8 @@ class Backend:
             return None
         self._pending_win = None
         with self.metrics.timer("backend.fetch"):
-            initial, final, iters, rejected = self._finish_solve(p)
-        return self._finish_window(p, initial, final, iters, rejected)
+            initial, final, iters, rejected, correction = self._finish_solve(p)
+        return self._finish_window(p, initial, final, iters, rejected, correction)
 
     # ------------------------------------------------------------------
     def _get_event_subset(self, t_beg: float, t_end: float):
@@ -386,7 +390,7 @@ class Backend:
         return None
 
     def _finish_window(self, meta, initial_cost, final_cost, iters,
-                       rejected: bool = False) -> WindowResult:
+                       rejected: bool = False, correction: float = 0.0) -> WindowResult:
         """Pose-latest update + result bookkeeping (pose_graph_optimizer.cpp:316-323)."""
         t_eval = meta["t_eval"]
         if self.traj.size >= self.order:
@@ -396,7 +400,7 @@ class Backend:
         res = WindowResult(index=meta["index"], t_beg=meta["t_beg"], t_end=meta["t_end"],
                            num_events=meta["num_events"], ran_ba=meta["ran_ba"],
                            initial_cost=initial_cost, final_cost=final_cost, iters=iters,
-                           rejected=rejected)
+                           rejected=rejected, correction_rad=correction)
         self.results.append(res)
         logger.info("[back-end] window %d [%.3f, %.3f) n=%d ba=%s cost=%.5f iters=%d",
                     res.index, res.t_beg, res.t_end, res.num_events, res.ran_ba,
@@ -480,18 +484,19 @@ class Backend:
                 idx_beg = self.count_window * self.cp_stride
                 n_raw = b - a
                 ran_ba = n_raw > self.min_events_per_win and self.traj.size > idx_beg
-                initial = final = 0.0
+                initial = final = correction = 0.0
                 iters, rejected = 0, False
                 if ran_ba:
                     with self.metrics.timer("backend.refine"):
                         p = self._dispatch_window_solve(bufs[0][a:b], bufs[1][a:b],
                                                         ts_b[a:b], idx_beg, 0)
                         p["index"] = self.count_window
-                        initial, final, iters, rejected = self._finish_solve(p)
+                        initial, final, iters, rejected, correction = self._finish_solve(p)
                 results.append(WindowResult(
                     index=self.count_window, t_beg=self.t_win_beg, t_end=self.t_win_end,
                     num_events=n_raw, ran_ba=ran_ba, initial_cost=initial,
-                    final_cost=final, iters=iters, rejected=rejected))
+                    final_cost=final, iters=iters, rejected=rejected,
+                    correction_rad=correction))
                 logger.info("[back-end] refine window %d [%.3f, %.3f) n=%d ba=%s "
                             "cost=%.5f iters=%d", self.count_window, self.t_win_beg,
                             self.t_win_end, n_raw, ran_ba, final, iters)
@@ -755,12 +760,13 @@ class Backend:
                     n_real=n_real, idx_cp_traj_beg=idx_cp_traj_beg, index=self.count_window,
                     knots_sub=sub)
 
-    def _finish_solve(self, p) -> Tuple[float, float, int, bool]:
+    def _finish_solve(self, p) -> Tuple[float, float, int, bool, float]:
         """Escape check (+ full-pano re-solve), the max_ba_correction_rad
         rejection, knot write-back (incrementalUpdate,
         global_optim_contrast_gsl.cpp:130) and map promotion. Reads the
         packed result _fused_fetch fetched, else fetches it (a synchronous
-        solve). Returns (initial, final, iters, rejected)."""
+        solve). Returns (initial, final, iters, rejected, the largest knot
+        correction in rad)."""
         packed = p.get("fetched")
         if packed is None:
             packed = self._fetch([], (p["handle"],))[0]
@@ -778,15 +784,15 @@ class Backend:
                 self.metrics.count("backend.crop_windows", 1)
         idx, n_real = p["idx_cp_traj_beg"], p["n_real"]
         q1 = knots_new.astype(np.float64)[:n_real]
+        q0 = p["knots_sub"][:n_real].astype(np.float64)
+        dots = np.abs(np.sum(q0 * q1, axis=1))
+        max_ang = float(2.0 * np.arccos(np.clip(dots, -1.0, 1.0)).max())
         cap = self.cfg.max_ba_correction_rad
         if cap is not None:
             # Degenerate-landscape guard (pairs with the in-solve trust stop):
             # a correction that moved any knot past the cap is a wandering
             # solve on a weakly textured window. Keep the front-end knots and
             # do not absorb this window's votes into the map.
-            q0 = p["knots_sub"][:n_real].astype(np.float64)
-            dots = np.abs(np.sum(q0 * q1, axis=1))
-            max_ang = 2.0 * np.arccos(np.clip(dots, -1.0, 1.0)).max()
             if max_ang > cap:
                 logger.warning(
                     "[back-end] window %d: BA correction %.2f deg exceeds "
@@ -794,13 +800,13 @@ class Backend:
                     "front-end trajectory", p["index"], math.degrees(max_ang),
                     math.degrees(cap))
                 self.metrics.count("backend.ba_rejected", 1)
-                return float(stats[0]), float(stats[1]), int(stats[2]), True
+                return float(stats[0]), float(stats[1]), int(stats[2]), True, max_ang
         self.traj.knots[idx: idx + n_real] = q1
         # In place, before the next window's dispatch: the window programs
         # read the maps at these addresses.
         self.IG.copy_(solver.ig_out)
         self.update_times.copy_(solver.upd_out)
-        return float(stats[0]), float(stats[1]), int(stats[2]), False
+        return float(stats[0]), float(stats[1]), int(stats[2]), False, max_ang
 
     def _fov_times_rel(self, t_knot0: float, n_real: int, dt_check: float = 0.05) -> np.ndarray:
         """setUpdateTimesIG's dt_check grid across the consumed stride
