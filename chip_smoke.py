@@ -1411,7 +1411,7 @@ def _reset_launches():
     native.CALLS.update(dict.fromkeys(native.CALLS, 0))
     device_loop.LAUNCHES["pred"] = 0
     device_loop.RUNS.clear()
-    device_loop.CAPTURES.update(graphs=0, segments=0, s=0.0)
+    device_loop.CAPTURES.update(graphs=0, s=0.0)
 
 
 def _rms_unnormalized(q_ref, q_est) -> float:

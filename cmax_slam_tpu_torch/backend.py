@@ -64,7 +64,7 @@ from .ops.blur import opencv_ksize
 from .ops.scatter import bilinear_accumulate_two
 from .ops.warp_pano import PanoWindow
 from .utils.device import resolve_device, to_device
-from .utils.metrics import Metrics, logger
+from .utils.metrics import TRACE, Metrics, logger
 
 
 @dataclass
@@ -234,19 +234,30 @@ class Backend:
         and complete the window in flight (its program ran while the host
         streamed the last stride), then dispatch this window's. Returns
         every window completed in this call, in order: usually the one
-        before, and this one too when it runs no BA."""
+        before, and this one too when it runs no BA.
+
+        Traced (utils.metrics.TRACE), a ``backend.step`` span with the index
+        of the window it dispatches; its children are the fetch and its
+        wait, the finish of the window in flight (``backend.finish``, with
+        that window's index), the event and ang-vel subsets, integration
+        and fit, and the dispatch (``backend.solve``). Each completed window
+        leaves a ``backend.result`` mark."""
         if not self.ready():
             return []
-        self._fused_fetch()
-        done = self._complete_pending()
-        if (self._bootstrap_pending is not None
-                and self.count_window >= self._bootstrap_pending):
-            self._run_bootstrap_resolve()
-        ev = self._get_event_subset(self.t_win_beg, self.t_win_end)
-        av = self._get_ang_vel_subset(self.t_av_beg, self.t_av_end)
-        res = self._process_time_window(ev, av)
-        self._slide_window()
-        return [r for r in (done, res) if r is not None]
+        with TRACE.span("backend.step", window=self.count_window):
+            self._fused_fetch()
+            done = self._complete_pending()
+            if (self._bootstrap_pending is not None
+                    and self.count_window >= self._bootstrap_pending):
+                with TRACE.span("backend.bootstrap"):
+                    self._run_bootstrap_resolve()
+            with TRACE.span("backend.event_subset"):
+                ev = self._get_event_subset(self.t_win_beg, self.t_win_end)
+            with TRACE.span("backend.ang_vel_subset"):
+                av = self._get_ang_vel_subset(self.t_av_beg, self.t_av_end)
+            res = self._process_time_window(ev, av)
+            self._slide_window()
+            return [r for r in (done, res) if r is not None]
 
     def run(self) -> List[WindowResult]:
         """Step while a window is ready, then flush; returns every window
@@ -263,7 +274,8 @@ class Backend:
         """Complete the window in flight, if any, and return it. Call before
         reading results, the trajectory or the maps mid-stream (the system's
         accessors flush on their own)."""
-        return self._complete_pending()
+        with TRACE.span("backend.flush"):
+            return self._complete_pending()
 
     def close(self) -> Optional[WindowResult]:
         """Retire the instance: flush (the back-end holds no threads)."""
@@ -296,9 +308,10 @@ class Backend:
         if p is None:
             return None
         self._pending_win = None
-        with self.metrics.timer("backend.fetch"):
-            initial, final, iters, rejected, correction = self._finish_solve(p)
-        return self._finish_window(p, initial, final, iters, rejected, correction)
+        with TRACE.span("backend.finish", window=p["index"]):
+            with self.metrics.timer("backend.fetch"):
+                initial, final, iters, rejected, correction = self._finish_solve(p)
+            return self._finish_window(p, initial, final, iters, rejected, correction)
 
     # ------------------------------------------------------------------
     def _get_event_subset(self, t_beg: float, t_end: float):
@@ -352,23 +365,24 @@ class Backend:
     def _process_time_window(self, ev, av_subset) -> WindowResult:
         """processTimeWindow (pose_graph_optimizer.cpp:244-323)."""
         cfg = self.cfg
-        pose_times, pose_quats = self._integrate_ang_vel(av_subset)
+        with TRACE.span("backend.integrate"):
+            pose_times, pose_quats = self._integrate_ang_vel(av_subset)
 
-        if len(pose_times) >= 2:
-            num_cps = (int(round((self.t_av_end - self.t_av_beg) / cfg.trajectory.dt_knots))
-                       + self.degree)
-            if len(pose_times) >= num_cps:
-                new_cps = spline.fit_ctrl_poses(pose_times, pose_quats, self.t_av_beg,
-                                                cfg.trajectory.dt_knots, num_cps, self.order)
-            else:
-                new_cps = np.tile(self.pose_latest[1], (num_cps, 1))  # hold the last pose
-            if self.first_window:
-                nfz = cfg.first_window_frozen_knots
-                self.idx_cp_opt_beg = self.degree if nfz is None else int(nfz)
-                self.first_window = False
-            else:
-                new_cps = new_cps[self.degree:]
-            self.traj.push_ctrl_poses(new_cps)
+            if len(pose_times) >= 2:
+                num_cps = (int(round((self.t_av_end - self.t_av_beg) / cfg.trajectory.dt_knots))
+                           + self.degree)
+                if len(pose_times) >= num_cps:
+                    new_cps = spline.fit_ctrl_poses(pose_times, pose_quats, self.t_av_beg,
+                                                    cfg.trajectory.dt_knots, num_cps, self.order)
+                else:
+                    new_cps = np.tile(self.pose_latest[1], (num_cps, 1))  # hold the last pose
+                if self.first_window:
+                    nfz = cfg.first_window_frozen_knots
+                    self.idx_cp_opt_beg = self.degree if nfz is None else int(nfz)
+                    self.first_window = False
+                else:
+                    new_cps = new_cps[self.degree:]
+                self.traj.push_ctrl_poses(new_cps)
 
         idx_cp_traj_beg = self.count_window * self.cp_stride
         self.idx_cp_opt_beg = max(idx_cp_traj_beg, self.idx_cp_opt_beg)
@@ -378,7 +392,8 @@ class Backend:
         n_raw = len(ts)
         ran_ba = n_raw > self.min_events_per_win and self.traj.size > idx_cp_traj_beg
         meta = dict(index=self.count_window, t_beg=self.t_win_beg, t_end=self.t_win_end,
-                    num_events=n_raw, ran_ba=ran_ba, t_eval=self.t_win_end - 1e-6)
+                    num_events=n_raw, ran_ba=ran_ba, t_eval=self.t_win_end - 1e-6,
+                    t_last=float(ts[-1]) if n_raw else None)
         if not ran_ba:
             return self._finish_window(meta, 0.0, 0.0, 0)
         # Dispatch only: the next step() (or flush()) fetches and completes it.
@@ -402,6 +417,8 @@ class Backend:
                            initial_cost=initial_cost, final_cost=final_cost, iters=iters,
                            rejected=rejected, correction_rad=correction)
         self.results.append(res)
+        TRACE.mark("backend.result", window=res.index, t_end=res.t_end,
+                   t_event=meta.get("t_last"))
         logger.info("[back-end] window %d [%.3f, %.3f) n=%d ba=%s cost=%.5f iters=%d",
                     res.index, res.t_beg, res.t_end, res.num_events, res.ran_ba,
                     final_cost, iters)
@@ -703,9 +720,10 @@ class Backend:
         """Load a window into its program and launch it. Returns (the
         launch's handle, the solver, whose ig_out/upd_out hold the new maps
         once the launch has completed)."""
-        solver = self._solver(win, fov_rel, crop_hw)
-        with torch.no_grad():
-            handle = solver.solve(win, fov_rel, consts, self.IG, self.update_times)
+        with TRACE.span("backend.launch"):
+            solver = self._solver(win, fov_rel, crop_hw)
+            with torch.no_grad():
+                handle = solver.solve(win, fov_rel, consts, self.IG, self.update_times)
         return handle, solver
 
     @staticmethod
@@ -718,10 +736,11 @@ class Backend:
     def _solve_full(self, win: PanoWindow, fov_rel):
         """Full-panorama window solve, launched. Returns (handle, solver)."""
         K = win.knots.shape[0]
-        zeros = torch.zeros((K, 3), device=self.device)
-        il0, _ = warp_pano.pano_objective_image(zeros, win, self.pano, self.order,
-                                                self.cfg.warp.blur_sigma)
-        alpha = warp_pano.compute_alpha(il0, win.ig_prime)
+        with TRACE.span("backend.full_alpha"):
+            zeros = torch.zeros((K, 3), device=self.device)
+            il0, _ = warp_pano.pano_objective_image(zeros, win, self.pano, self.order,
+                                                    self.cfg.warp.blur_sigma)
+            alpha = warp_pano.compute_alpha(il0, win.ig_prime)
         return self._run_solver(win, fov_rel, consts=dict(alpha=alpha))
 
     @torch.no_grad()
@@ -729,10 +748,11 @@ class Backend:
         """FOV-crop window solve, launched. Returns (handle, solver)."""
         Hc, Wc, ints, _ = plan
         cfg = self.cfg
-        ints_t = to_device(ints, self.device)
-        win, _, _, a_crop, mask, out_s1, out_s2 = warp_pano.crop_window_constants(
-            win, self.pano, self.order, cfg.warp.blur_sigma, cfg.contrast_measure, (Hc, Wc),
-            ints_t)
+        with TRACE.span("backend.crop_constants"):
+            ints_t = to_device(ints, self.device)
+            win, _, _, a_crop, mask, out_s1, out_s2 = warp_pano.crop_window_constants(
+                win, self.pano, self.order, cfg.warp.blur_sigma, cfg.contrast_measure, (Hc, Wc),
+                ints_t)
         consts = dict(alpha=win.alpha, crop=ints_t, a_crop=a_crop, mask=mask, out_s1=out_s1,
                       out_s2=out_s2)
         return self._run_solver(win, fov_rel, (Hc, Wc), consts)
@@ -741,7 +761,8 @@ class Backend:
         """Marshal the window and launch its solve (crop first where
         planned); nothing is read on the host. Returns the completion record
         for _finish_solve."""
-        arrays = self._window_arrays(xs, ys, ts, idx_cp_traj_beg)
+        with TRACE.span("backend.window_arrays"):
+            arrays = self._window_arrays(xs, ys, ts, idx_cp_traj_beg)
         K = self.K_win
         sub = self.traj.knots[idx_cp_traj_beg:][:K]
         n_real = len(sub)
@@ -750,8 +771,10 @@ class Backend:
         free = np.zeros(K, np.float32)
         free[num_fixed:n_real] = 1.0
         fov_rel = self._fov_times_rel(self.traj.knot_time(idx_cp_traj_beg), n_real)
-        win = self._window(arrays, sub.astype(np.float32), free)
-        plan = self._plan_crop(arrays, sub) if self.cfg.crop_solver else None
+        with TRACE.span("backend.window"):
+            win = self._window(arrays, sub.astype(np.float32), free)
+        with TRACE.span("backend.plan_crop"):
+            plan = self._plan_crop(arrays, sub) if self.cfg.crop_solver else None
         if plan is not None:
             handle, solver = self._solve_crop(win, fov_rel, plan)
         else:
@@ -778,8 +801,9 @@ class Backend:
                 logger.info("[back-end] window %d: optimum escaped the %dx%d crop; "
                             "re-solving on the full panorama", p["index"], Hc, Wc)
                 self.metrics.count("backend.crop_escapes", 1)
-                handle, solver = self._solve_full(p["win"], p["fov_rel"])
-                knots_new, stats = self._unpack(self._fetch([], (handle,))[0], p["K"])
+                with TRACE.span("backend.escape"):
+                    handle, solver = self._solve_full(p["win"], p["fov_rel"])
+                    knots_new, stats = self._unpack(self._fetch([], (handle,))[0], p["K"])
             else:
                 self.metrics.count("backend.crop_windows", 1)
         idx, n_real = p["idx_cp_traj_beg"], p["n_real"]
@@ -837,7 +861,9 @@ class Backend:
         from .utils.image import render_pano
 
         self.flush()
-        img = render_pano(self.IG.cpu().numpy(), gamma=self.cfg.gamma, invert=True)
+        with TRACE.span("backend.read_map", wait=True):
+            ig = self.IG.cpu().numpy()
+        img = render_pano(ig, gamma=self.cfg.gamma, invert=True)
         self.metrics.count("backend.host_reads")
         if self.cfg.draw_fov and self.traj is not None and self.traj.size >= self.order:
             img = np.stack([img] * 3, axis=-1)
@@ -911,7 +937,8 @@ class Backend:
             av_w = np.zeros((0, 3))
         tl = (np.array([[t, *q] for t, q in self.trajectory_log])
               if self.trajectory_log else np.zeros((0, 5)))
-        ig, upd = self.IG.cpu().numpy(), self.update_times.cpu().numpy()
+        with TRACE.span("backend.read_map", wait=True):
+            ig, upd = self.IG.cpu().numpy(), self.update_times.cpu().numpy()
         self.metrics.count("backend.host_reads", 2)
         return {
             "knots": self.traj.knots if self.traj else np.zeros((0, 4)),
@@ -1068,7 +1095,8 @@ class _WindowSolver:
     def solve(self, win: PanoWindow, fov_rel, consts, ig, upd) -> device_loop.Result:
         """Load the window (``load``) and launch; returns the launch's
         handle."""
-        self.load(win, fov_rel, consts, ig, upd)
+        with TRACE.span("backend.load"):
+            self.load(win, fov_rel, consts, ig, upd)
         return self.program.run()
 
     def load(self, win: PanoWindow, fov_rel, consts, ig, upd) -> None:

@@ -88,6 +88,9 @@ def parse_args(argv=None):
                    help="glog-style verbosity: 0=warn, 1=info, 2=debug")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="config override, dotted (e.g. frontend.dt_ang_vel=0.01)")
+    p.add_argument("--trace", default=None, metavar="FILE",
+                   help="write the run's trace (host spans and marks, device intervals and "
+                        "loop-node times on one clock) to FILE as Chrome-trace JSON")
     return p.parse_args(argv)
 
 
@@ -130,6 +133,22 @@ def load_calibration(args) -> CameraCalibration:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if not args.trace:
+        return _run(args)
+    from .utils.metrics import TRACE, write_chrome_trace
+
+    # Armed before the system is built, so that its programs time their loops.
+    TRACE.enable()
+    TRACE.start()
+    try:
+        return _run(args)
+    finally:
+        TRACE.stop()
+        TRACE.disable()
+        write_chrome_trace(args.trace)
+
+
+def _run(args) -> int:
     from .utils.metrics import configure_logging
 
     configure_logging(args.verbose)

@@ -26,6 +26,14 @@
 // cast. It reads at most L + 8 bytes and writes 4: its bound is the launch
 // (about a microsecond). Its node's latency in the graph, not its body, is
 // what a loop iteration pays for it.
+//
+// Loop clocks (a program built while the trace is armed): a WHILE node's
+// predicates also get a pointer to an int64 pair {start, total} of that
+// node. The predicate before the node stores %globaltimer (ns) in start
+// when the loop is to run; the predicate that ends the loop (at the end of
+// its body) adds now - start to total. An inner loop's entry predicate runs
+// in its outer loop's body, so nested loops are timed each on its own. With
+// a null pointer (unarmed) nothing else is read or written.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,7 +49,18 @@ struct Gate {
   const int* limit;
 };
 
-__global__ void loop_pred(cudaGraphConditionalHandle handle, Gate g, float* count) {
+// Where a predicate stands for its loop clock: before a WHILE node, at the
+// end of its body, or neither (an IF node).
+enum ClockRole : int { kNoClock = 0, kLoopEntry = 1, kLoopEnd = 2 };
+
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
+
+__global__ void loop_pred(cudaGraphConditionalHandle handle, Gate g, float* count,
+                          long long* clock, int role) {
   const bool below = g.counter == nullptr || threadIdx.x != 0 || *g.counter < *g.limit;
   bool any = false;
   for (int i = threadIdx.x; i < g.lanes; i += blockDim.x) any |= g.mask[i] != 0;
@@ -49,6 +68,13 @@ __global__ void loop_pred(cudaGraphConditionalHandle handle, Gate g, float* coun
   if (threadIdx.x == 0) {
     const unsigned int go = any && below;
     if (go) *count += 1.0f;
+    if (clock != nullptr) {
+      if (role == kLoopEntry && go) {
+        clock[0] = global_ns();
+      } else if (role == kLoopEnd && !go) {
+        clock[1] += global_ns() - clock[0];
+      }
+    }
     cudaGraphSetConditional(handle, go);
   }
 }
@@ -56,12 +82,14 @@ __global__ void loop_pred(cudaGraphConditionalHandle handle, Gate g, float* coun
 constexpr int kMaxPredThreads = 1024;
 
 cudaError_t add_pred(cudaGraph_t graph, cudaGraphNode_t dep, cudaGraphConditionalHandle handle,
-                     Gate gate, float* count, cudaGraphNode_t* out) {
+                     Gate gate, float* count, long long* clock, int role,
+                     cudaGraphNode_t* out) {
   if (gate.mask == nullptr || gate.lanes < 1 ||
       (gate.counter == nullptr) != (gate.limit == nullptr)) {
     return cudaErrorInvalidValue;
   }
-  void* args[] = {&handle, &gate, &count};
+  if (clock == nullptr) role = kNoClock;
+  void* args[] = {&handle, &gate, &count, &clock, &role};
   cudaKernelNodeParams p = {};
   p.func = reinterpret_cast<void*>(loop_pred);
   p.gridDim = dim3(1);
@@ -94,15 +122,18 @@ int loop_add_child(cudaGraph_t graph, cudaGraphNode_t dep, cudaGraph_t child,
 // counter and limit both null or both set), then a conditional node
 // (is_while 0: IF, 1: WHILE) on its handle. Returns the conditional node, its
 // body graph and the handle. A WHILE body must end with loop_add_pred on the
-// same handle and gate, which decides the next iteration.
+// same handle, gate and clock, which decides the next iteration. `clock` is
+// the WHILE node's int64 {start, total} pair, or null (no loop clock; an IF
+// node's is ignored).
 int loop_add_cond(cudaGraph_t graph, cudaGraphNode_t dep, int is_while,
                   const unsigned char* mask, int lanes, const int* counter, const int* limit,
-                  float* count, cudaGraphNode_t* out, cudaGraph_t* body,
+                  float* count, long long* clock, cudaGraphNode_t* out, cudaGraph_t* body,
                   cudaGraphConditionalHandle* handle) {
   cudaError_t e = cudaGraphConditionalHandleCreate(handle, graph, 0, cudaGraphCondAssignDefault);
   if (e != cudaSuccess) return e;
   cudaGraphNode_t pred;
-  e = add_pred(graph, dep, *handle, Gate{mask, lanes, counter, limit}, count, &pred);
+  e = add_pred(graph, dep, *handle, Gate{mask, lanes, counter, limit}, count,
+               is_while ? clock : nullptr, kLoopEntry, &pred);
   if (e != cudaSuccess) return e;
   cudaGraphNodeParams p = {};
   p.type = cudaGraphNodeTypeConditional;
@@ -117,8 +148,9 @@ int loop_add_cond(cudaGraph_t graph, cudaGraphNode_t dep, int is_while,
 
 int loop_add_pred(cudaGraph_t graph, cudaGraphNode_t dep, cudaGraphConditionalHandle handle,
                   const unsigned char* mask, int lanes, const int* counter, const int* limit,
-                  float* count, cudaGraphNode_t* out) {
-  return add_pred(graph, dep, handle, Gate{mask, lanes, counter, limit}, count, out);
+                  float* count, long long* clock, cudaGraphNode_t* out) {
+  return add_pred(graph, dep, handle, Gate{mask, lanes, counter, limit}, count, clock,
+                  kLoopEnd, out);
 }
 
 int loop_instantiate(cudaGraph_t graph, cudaGraphExec_t* exec) {

@@ -57,8 +57,8 @@ from .io import native
 from .io.devring import DeviceEventRing, _next_pow2
 from .io.events import EventStore
 from .ops import device_loop, optim, program_pool, warp_local
-from .utils.device import resolve_device, to_device
-from .utils.metrics import Metrics, logger
+from .utils.device import resolve_device, stage, to_device, upload
+from .utils.metrics import TRACE, Metrics, logger
 
 
 @dataclass
@@ -140,6 +140,7 @@ class Frontend:
         self._omega_host = np.zeros(3, np.float32)
         self._carry: Optional[device_loop.Result] = None
         self.estimates: List[AngVelEstimate] = []
+        self._launch_count = 0  # launches made: the trace's launch numbers
 
     # ------------------------------------------------------------------
     def checkpoint(self) -> dict:
@@ -198,29 +199,40 @@ class Frontend:
     # ------------------------------------------------------------------
     def push_events(self, xs, ys, ts, ps) -> List[AngVelEstimate]:
         """Ingest a chunk of events (stream order); returns new estimates
-        (the per-event pushEvent loop, ang_vel_estimator.cpp:68-135)."""
+        (the per-event pushEvent loop, ang_vel_estimator.cpp:68-135).
+
+        Traced (utils.metrics.TRACE), a ``frontend.push`` span whose
+        children are the store's append, the ring's, the trigger scan, each
+        packet's cut, each launch's marshalling (``frontend.marshal``) and
+        launch (``frontend.launch``, around the ``frontend.solve`` timer),
+        both with the launch's number."""
         ts = np.asarray(ts, np.float64)
         if len(ts) == 0:
             return []
-        if not self._initialized:
-            self._t0 = float(ts[0])
-            self._t_packet = float(ts[0]) + 0.5 * self.cfg.dt_ang_vel
-            self._cursor = self._t_packet
-            self._initialized = True
-        self.store.append(xs, ys, ts, ps)
-        if self._ring is not None:
-            self._ring.append(xs, ys, (ts - self._t0).astype(np.float32))
-        self._scan_triggers()
-        ready = []
-        while self._pending and self.store.total > self._pending[0][1]:
-            ready.append(self._pending.pop(0))
-        if len(ready) >= 2 and self.cfg.batch_sweeps > 0:
-            out = self._process_stride(ready)
-        else:
-            out = [self._process_packet(beg, end) for beg, end in ready]
-        if self.auto_finalize:
-            self.finalize_batch(out)
-        return out
+        with TRACE.span("frontend.push"):
+            if not self._initialized:
+                self._t0 = float(ts[0])
+                self._t_packet = float(ts[0]) + 0.5 * self.cfg.dt_ang_vel
+                self._cursor = self._t_packet
+                self._initialized = True
+            with TRACE.span("frontend.store_append"):
+                self.store.append(xs, ys, ts, ps)
+            if self._ring is not None:
+                with TRACE.span("frontend.ring_append"):
+                    self._ring.append(xs, ys, (ts - self._t0).astype(np.float32))
+            with TRACE.span("frontend.scan"):
+                self._scan_triggers()
+                ready = []
+                while self._pending and self.store.total > self._pending[0][1]:
+                    ready.append(self._pending.pop(0))
+            if len(ready) >= 2 and self.cfg.batch_sweeps > 0:
+                out = self._process_stride(ready)
+            else:
+                out = [self._process_packet(beg, end) for beg, end in ready]
+            if self.auto_finalize:
+                with TRACE.span("frontend.finalize"):
+                    self.finalize_batch(out)
+            return out
 
     def finalize_batch(self, ests: List[AngVelEstimate], extra_handles: tuple = (), *,
                        counter: Optional[str] = "frontend.host_reads") -> List[np.ndarray]:
@@ -322,7 +334,8 @@ class Frontend:
         return est, timespan > 10.0 * self.cfg.dt_ang_vel or n < 2
 
     def _process_packet(self, beg: int, end: int) -> AngVelEstimate:
-        est, degenerate = self._next_packet(beg, end)
+        with TRACE.span("frontend.cut"):
+            est, degenerate = self._next_packet(beg, end)
         if degenerate:
             self._reset_warm_start()
             return est
@@ -335,10 +348,11 @@ class Frontend:
         _process_packets_batched): lanes padded to _lane_bucket; a
         degenerate lane gives zeros and resets the warm start on the device."""
         ests, flags = [], []
-        for beg, end in ready:
-            est, degenerate = self._next_packet(beg, end)
-            ests.append(est)
-            flags.append(0.0 if degenerate else 1.0)
+        with TRACE.span("frontend.cut"):
+            for beg, end in ready:
+                est, degenerate = self._next_packet(beg, end)
+                ests.append(est)
+                flags.append(0.0 if degenerate else 1.0)
         if not any(flags):  # every packet degenerate: no solve, the warm start resets
             self._reset_warm_start()
             return ests
@@ -363,28 +377,31 @@ class Frontend:
         ring when it is resident there, else from this launch's upload of
         its events."""
         L, S = len(flags), self.packet_size
-        lanes = np.zeros((L, 5), np.float64)  # [position, n, t_ref, flag, from ring]
-        host = None
-        for i, (e, fl) in enumerate(zip(ests, flags)):
-            lanes[i, 3] = fl
-            if fl <= 0:
-                continue
-            beg, end = e.span
-            lanes[i, 1] = e.num_events
-            lanes[i, 2] = np.float32(e.t - self._t0)
-            if self._from_ring(beg):
-                lanes[i, 0] = beg & (self._ring.capacity - 1)
-                lanes[i, 4] = 1.0
-                self.metrics.count("frontend.ring_packets")
-            else:
-                if host is None:
-                    host = np.zeros((2, L, S), np.int32)
-                lanes[i, 0] = i * S
-                xs, ys, ts, _ = self.store.slice_abs(beg, end)
-                host[:, i] = self._host_events(xs, ys, ts)
-            self.metrics.count("frontend.events", e.num_events)
-        solver = self._solver(L)
-        with self.metrics.timer("frontend.solve"), torch.no_grad():
+        self._launch_count += 1
+        with TRACE.span("frontend.marshal", launch=self._launch_count):
+            lanes = np.zeros((L, 5), np.float64)  # [position, n, t_ref, flag, from ring]
+            host = None
+            for i, (e, fl) in enumerate(zip(ests, flags)):
+                lanes[i, 3] = fl
+                if fl <= 0:
+                    continue
+                beg, end = e.span
+                lanes[i, 1] = e.num_events
+                lanes[i, 2] = np.float32(e.t - self._t0)
+                if self._from_ring(beg):
+                    lanes[i, 0] = beg & (self._ring.capacity - 1)
+                    lanes[i, 4] = 1.0
+                    self.metrics.count("frontend.ring_packets")
+                else:
+                    if host is None:
+                        host = np.zeros((2, L, S), np.int32)
+                    lanes[i, 0] = i * S
+                    xs, ys, ts, _ = self.store.slice_abs(beg, end)
+                    host[:, i] = self._host_events(xs, ys, ts)
+                self.metrics.count("frontend.events", e.num_events)
+            solver = self._solver(L)
+        with TRACE.span("frontend.launch", launch=self._launch_count), \
+                self.metrics.timer("frontend.solve"), torch.no_grad():
             handle = solver.solve(lanes, self._omega_dev, host)
             self._omega_dev.copy_(solver.carry[0])
         self._carry = handle
@@ -419,7 +436,7 @@ class Frontend:
         packet = self._packet(xs, ys, ts, float(np.float32(0.5 * (ts[0] + ts[-1]) - self._t0)))
         omegas = torch.zeros((2, 3), dtype=torch.float32, device=self.device)
         omegas[1] = to_device(np.asarray(omega, np.float32), self.device)
-        with torch.no_grad():
+        with torch.no_grad(), TRACE.span("frontend.read_iwe", wait=True):
             imgs = warp_local.local_iwe(omegas, packet, self.cam, 0.0).cpu().numpy()
         self.metrics.count("frontend.host_reads")
         stacked = np.concatenate([imgs[0], imgs[1]], axis=1)
@@ -494,9 +511,11 @@ class _PacketSolver:
             # Coarse stage on a 3x-blurred IWE with half the budget, then the
             # fine solve from its optimum (_build_packet_solver).
             f, vg = objective(max(cfg.warp.blur_sigma, 1.0) * 3.0)
-            self.coarse = optim.LaneCG(vg, f, 1, 3, dev, max_iters=o.max_line_searches // 2, **kw)
+            self.coarse = optim.LaneCG(vg, f, 1, 3, dev, max_iters=o.max_line_searches // 2,
+                                       name="coarse", **kw)
         f, vg = objective(cfg.warp.blur_sigma)
-        self.fine = optim.LaneCG(vg, f, 1, 3, dev, max_iters=o.max_line_searches, **kw)
+        self.fine = optim.LaneCG(vg, f, 1, 3, dev, max_iters=o.max_line_searches, name="fine",
+                                 **kw)
 
         def start():
             self.li.zero_()
@@ -546,10 +565,10 @@ class _PacketSolver:
 
             def lane():
                 b.seg(load)
-                b.when(self.live, lambda: solve_lane(b))
+                b.when(self.live, lambda: solve_lane(b), name="live")
                 b.seg(store)
 
-            b.repeat(self.go, lane)
+            b.repeat(self.go, lane, name="lanes")
             b.seg(finish)
 
         self.program = device_loop.Program(build, capacity * 5 + 3, dev, name="frontend")
@@ -565,10 +584,12 @@ class _PacketSolver:
         ``out[-3:]`` (and in ``carry`` until the next launch)."""
         L = len(lanes)
         dev = self.lanes_in.device
-        self.lanes_in[:L].copy_(to_device(lanes, dev))
-        self.count_in.fill_(L)
-        self.omega_in.copy_(omega0.reshape(1, 3))
-        if host is not None:
-            self.host_in[:, :host.shape[1] * host.shape[2]].copy_(
-                to_device(host.reshape(2, -1), dev))
+        lanes_h = stage(lanes, dev)
+        host_h = None if host is None else stage(host.reshape(2, -1), dev)
+        with TRACE.span("frontend.upload", device=True):
+            self.lanes_in[:L].copy_(upload(lanes_h, dev))
+            self.count_in.fill_(L)
+            self.omega_in.copy_(omega0.reshape(1, 3))
+            if host_h is not None:
+                self.host_in[:, :host_h.shape[1]].copy_(upload(host_h, dev))
         return self.program.run()

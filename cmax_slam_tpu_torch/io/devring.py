@@ -22,7 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.device import to_device
+from ..utils.device import stage, upload
+from ..utils.metrics import TRACE
 
 
 def _next_pow2(n: int) -> int:
@@ -76,15 +77,17 @@ class DeviceEventRing:
         np.add(np.multiply(np.asarray(ys, np.int32), self.img_width, dtype=np.int32),
                np.asarray(xs, np.int32), out=host[0])
         host[1] = np.asarray(ts_rel, np.float32).view(np.int32)
-        dev = to_device(host, self.device)
-        idx, ts = dev[0], dev[1].view(torch.float32)
-        pos = self.hi & (self.capacity - 1)
-        first = min(n, self.capacity - pos)
-        self._idx[pos:pos + first] = idx[:first]
-        self._ts[pos:pos + first] = ts[:first]
-        if n > first:
-            self._idx[:n - first] = idx[first:]
-            self._ts[:n - first] = ts[first:]
+        staged = stage(host, self.device)
+        with TRACE.span("frontend.ring_upload", device=True):
+            dev = upload(staged, self.device)
+            idx, ts = dev[0], dev[1].view(torch.float32)
+            pos = self.hi & (self.capacity - 1)
+            first = min(n, self.capacity - pos)
+            self._idx[pos:pos + first] = idx[:first]
+            self._ts[pos:pos + first] = ts[:first]
+            if n > first:
+                self._idx[:n - first] = idx[first:]
+                self._ts[:n - first] = ts[first:]
         self.hi += n
 
     def reset(self, hi: int = 0) -> None:

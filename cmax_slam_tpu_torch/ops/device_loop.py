@@ -7,11 +7,14 @@ A program is described once by a ``build(b)`` function over static buffers
 
 - ``b.seg(fn)``: straight-line tensor code; ``fn()`` reads and writes the
   buffers in place and never reads a value on the host;
-- ``b.when(gate, body)``: ``body()`` (more statements) runs only if the gate
-  holds;
-- ``b.repeat(gate, body, trips=None)``: ``body()`` runs while the gate holds;
-  the body must change what the gate reads, and ``trips``, where given, is
-  the most iterations the loop can run.
+- ``b.when(gate, body, name=None)``: ``body()`` (more statements) runs only
+  if the gate holds;
+- ``b.repeat(gate, body, trips=None, name=None)``: ``body()`` runs while the
+  gate holds; the body must change what the gate reads, and ``trips``, where
+  given, is the most iterations the loop can run.
+
+``name`` names the node in the program's statement tree and in the trace
+(default ``while<slot>`` / ``if<slot>``).
 
 A gate is a ``Gate(mask, counter=None, limit=None)`` (a bare mask stands for
 ``Gate(mask)``): it holds while any lane of ``mask`` is set and, where a
@@ -50,6 +53,19 @@ When a Result is fetched, each kernel launch captured in a segment
 (ops/cuda_iwe.py records them) is counted once per execution of that
 segment, ``LAUNCHES["pred"]`` counts the predicate's executions, and
 ``RUNS`` the graph launches by program name.
+
+Trace (utils/metrics.TRACE). A program built while the trace is armed
+gives each loop predicate a pointer to an int64 pair of its WHILE node
+beside the readback: at an entry that runs the loop the predicate stores
+``%globaltimer``, at the predicate that ends it it adds the time since to
+the node's total, and the totals reach the host in the readback copy, as
+device seconds by node path (``Launch.loops``). Unarmed, the pointer is
+null and the graph is the same. While recording with a CUDA anchor, each
+launch records a CUDA event before and after it (``TRACE.launch``; a first
+run's after its capture), a wait on the host is a ``device_loop.wait``
+span, a capture a ``device_loop.capture`` span and each segment's warm-up
+before its capture a ``device_loop.warmup`` device span on the capture's
+stream.
 """
 
 from __future__ import annotations
@@ -63,11 +79,12 @@ from typing import Callable, List, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..utils.metrics import TRACE
 from . import cuda_iwe, nvcc
 
 LAUNCHES = {"pred": 0}
 RUNS: dict = {}          # program name -> graph launches
-CAPTURES = {"graphs": 0, "segments": 0, "s": 0.0}
+CAPTURES = {"graphs": 0, "s": 0.0}
 MAX_CONDS = 128          # conditional nodes per program (counter slots)
 
 SOURCE = nvcc.CSRC / "loop.cu"
@@ -98,8 +115,8 @@ def build():
             lib.loop_graph_destroy.argtypes = [p]
             lib.loop_add_child.argtypes = [p, p, p, pp]
             i = ctypes.c_int
-            lib.loop_add_cond.argtypes = [p, p, i, p, i, p, p, p, pp, pp, ctypes.POINTER(h)]
-            lib.loop_add_pred.argtypes = [p, p, h, p, i, p, p, p, pp]
+            lib.loop_add_cond.argtypes = [p, p, i, p, i, p, p, p, p, pp, pp, ctypes.POINTER(h)]
+            lib.loop_add_pred.argtypes = [p, p, h, p, i, p, p, p, p, pp]
             lib.loop_instantiate.argtypes = [p, pp]
             lib.loop_launch.argtypes = [p, p]
             lib.loop_exec_destroy.argtypes = [p]
@@ -186,12 +203,13 @@ class Eager:
     def seg(self, fn: Callable) -> None:
         fn()
 
-    def when(self, gate_t, body: Callable) -> None:
+    def when(self, gate_t, body: Callable, name: str | None = None) -> None:
         g = as_gate(gate_t)
         if not self.gate or g.holds():
             body()
 
-    def repeat(self, gate_t, body: Callable, trips: int | None = None) -> None:
+    def repeat(self, gate_t, body: Callable, trips: int | None = None,
+               name: str | None = None) -> None:
         g = as_gate(gate_t)
         if not self.gate:
             for _ in range(trips or 1):
@@ -218,7 +236,7 @@ class _Capture:
         prog._occurrences.append((idx, self.slot))
         self.items.append(("seg", idx))
 
-    def _cond(self, is_while: int, gate_t, body: Callable) -> None:
+    def _cond(self, is_while: int, gate_t, body: Callable, name: str | None) -> None:
         prog = self.prog
         g = as_gate(gate_t)
         where = g.mask.device
@@ -227,7 +245,9 @@ class _Capture:
         slot = len(prog._conds)
         if slot >= MAX_CONDS:
             raise RuntimeError(f"more than {MAX_CONDS} conditional nodes in one program")
+        name = name or f"{'while' if is_while else 'if'}{slot}"
         prog._conds.append((is_while, self.slot))
+        prog._cond_paths.append(name if self.slot < 0 else f"{prog._cond_paths[self.slot]}/{name}")
         outer, self.items, outer_slot, self.slot = self.items, [], self.slot, slot
         try:
             body()
@@ -235,11 +255,12 @@ class _Capture:
             inner, self.items, self.slot = self.items, outer, outer_slot
         self.items.append(("cond", is_while, g, slot, inner))
 
-    def when(self, gate_t, body: Callable) -> None:
-        self._cond(0, gate_t, body)
+    def when(self, gate_t, body: Callable, name: str | None = None) -> None:
+        self._cond(0, gate_t, body, name)
 
-    def repeat(self, gate_t, body: Callable, trips: int | None = None) -> None:
-        self._cond(1, gate_t, body)
+    def repeat(self, gate_t, body: Callable, trips: int | None = None,
+               name: str | None = None) -> None:
+        self._cond(1, gate_t, body, name)
 
 
 class Program:
@@ -255,12 +276,19 @@ class Program:
         self.build_fn = build_fn
         self.device = torch.device(device)
         self.name = name
-        # out and the conditional nodes' counters share one buffer: one copy
-        # to the host per run.
-        ncount = MAX_CONDS if self.device.type == "cuda" else 0
-        self._readback = torch.zeros(n_out + ncount, dtype=torch.float32, device=self.device)
+        # out, the conditional nodes' counters and, built armed, their loop
+        # clocks (int64 start and total per node, 8-byte aligned) share one
+        # buffer: one copy to the host per run.
+        cuda = self.device.type == "cuda"
+        ncount = MAX_CONDS if cuda else 0
+        self.clocked = cuda and TRACE.armed
+        self._clock_at = (n_out + ncount + 1) // 2 * 2
+        size = self._clock_at + 4 * MAX_CONDS if self.clocked else n_out + ncount
+        self._readback = torch.zeros(size, dtype=torch.float32, device=self.device)
         self.out = self._readback[:n_out]
-        self._counts = self._readback[n_out:]
+        self._counts = self._readback[n_out:n_out + ncount]
+        self._clocks = (self._readback[self._clock_at:].view(torch.int64).view(MAX_CONDS, 2)
+                        if self.clocked else None)
         self._slots: List[torch.Tensor] = []  # free pinned host slots of the readback
         self._pool = None
         self._exec = None
@@ -269,6 +297,7 @@ class Program:
         self._seg_launches: List[list] = []  # per capture: the kernel launches it holds
         self._occurrences: List[tuple] = []  # (capture, counter slot of its conditional)
         self._conds: List[tuple] = []  # (is_while, parent slot)
+        self._cond_paths: List[str] = []  # the nodes' names, "outer/inner"
         self.capture_s = 0.0
         # Runs the first capture: ``capture_guard(capture)``; the program
         # pool sets it to account the capture's memory and retry it once
@@ -278,9 +307,10 @@ class Program:
     # -- capture --------------------------------------------------------
     def _capture_segment(self, fn: Callable) -> int:
         side = self._side
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), TRACE.span("device_loop.warmup", device=True):
             fn()  # warm-up: lazy handles, workspaces and kernel attributes
-        side.synchronize()
+        with TRACE.span("device_loop.wait", program=self.name, wait=True):
+            side.synchronize()
         g = torch.cuda.CUDAGraph(keep_graph=True)
         rec: list = []
         with torch.cuda.stream(side), cuda_iwe.recording(rec):
@@ -308,13 +338,15 @@ class Program:
                 gp = (p(g.mask.data_ptr()), g.mask.numel(),
                       *(p(None if t is None else t.data_ptr()) for t in (g.counter, g.limit)))
                 cp = p(self._counts[slot:].data_ptr())
-                _check(lib, lib.loop_add_cond(graph, tail, is_while, *gp, cp, ctypes.byref(out),
-                                              ctypes.byref(body), ctypes.byref(handle)),
+                clock = p(self._clocks[slot].data_ptr() if self.clocked and is_while else None)
+                _check(lib, lib.loop_add_cond(graph, tail, is_while, *gp, cp, clock,
+                                              ctypes.byref(out), ctypes.byref(body),
+                                              ctypes.byref(handle)),
                        "conditional node")
                 btail = self._assemble(lib, body, inner)
                 if is_while:
                     end = p()
-                    _check(lib, lib.loop_add_pred(body, btail, handle, *gp, cp,
+                    _check(lib, lib.loop_add_pred(body, btail, handle, *gp, cp, clock,
                                                   ctypes.byref(end)),
                            "loop predicate node")
             tail = out
@@ -325,13 +357,13 @@ class Program:
         t0 = time.perf_counter()
         # A capture that failed (out of memory) is retried from scratch.
         self._graphs, self._seg_index, self._seg_launches = [], {}, []
-        self._occurrences, self._conds = [], []
+        self._occurrences, self._conds, self._cond_paths = [], [], []
         self._pool = torch.cuda.graph_pool_handle()
         main = torch.cuda.current_stream(self.device)
         self._side = torch.cuda.Stream(self.device)
         self._side.wait_stream(main)
         cap = _Capture(self)
-        cap.seg(self._counts.zero_)
+        cap.seg(self._readback[self.out.numel():].zero_ if self.clocked else self._counts.zero_)
         self.build_fn(cap)
         graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
         _check(lib, lib.loop_graph_create(ctypes.byref(graph)), "cudaGraphCreate")
@@ -346,7 +378,6 @@ class Program:
         self.capture_s = time.perf_counter() - t0
         with _lock:
             CAPTURES["graphs"] += 1
-            CAPTURES["segments"] += len(self._graphs)
             CAPTURES["s"] += self.capture_s
 
     def __del__(self):
@@ -362,7 +393,7 @@ class Program:
             return Result(self, values=self._readback.numpy().copy())
         with torch.cuda.device(self.device):
             if self._exec is None:
-                with _capture_lock:
+                with _capture_lock, TRACE.span("device_loop.capture", program=self.name):
                     # No garbage collection inside a capture: a collected
                     # program frees its graphs there, which the capture
                     # forbids (cudaErrorStreamCaptureInvalidated).
@@ -379,20 +410,39 @@ class Program:
                             gc.enable()
             lib = build()
             stream = torch.cuda.current_stream(self.device)
+            launch = TRACE.launch(self.name)
+            if launch is not None:
+                launch.events[0].record(stream)
             _check(lib, lib.loop_launch(self._exec, ctypes.c_void_p(stream.cuda_stream)),
                    "cudaGraphLaunch")
-            return self._enqueue_readback(stream)
+            result = self._enqueue_readback(stream)
+            if launch is not None:
+                launch.events[1].record(stream)
+                result._launch = launch
+            return result
 
     def _enqueue_readback(self, stream) -> "Result":
-        """Queue the copy of ``out`` and the counters into a pinned host slot
-        (a free one of this program's, else a new one) and an event behind
-        it; the slot returns to the pool when its Result is fetched."""
+        """Queue the copy of ``out`` and the counters (and the loop clocks)
+        into a pinned host slot (a free one of this program's, else a new
+        one) and an event behind it; the slot returns to the pool when its
+        Result is fetched."""
         slot = (self._slots.pop() if self._slots
                 else torch.empty(self._readback.shape, dtype=torch.float32, pin_memory=True))
         slot.copy_(self._readback, non_blocking=True)
         event = torch.cuda.Event()
         event.record(stream)
         return Result(self, slot=slot, event=event)
+
+    def _loop_seconds(self, host: np.ndarray) -> dict:
+        """Device seconds of each WHILE node of one launch, by node path,
+        from the readback's clock totals (nanoseconds)."""
+        totals = host[self._clock_at:].view(np.int64).reshape(MAX_CONDS, 2)[:, 1]
+        out: dict = {}
+        for slot, (is_while, _) in enumerate(self._conds):
+            if is_while:
+                path = self._cond_paths[slot]
+                out[path] = out.get(path, 0.0) + float(totals[slot]) * 1e-9
+        return out
 
     def _count(self, counts: np.ndarray) -> None:
         """Executed launches from the nodes' counters."""
@@ -416,11 +466,12 @@ class Result:
     until the first fetch; the values are kept after it, so a Result shared
     by several readers (the lanes of one front-end launch) waits once."""
 
-    __slots__ = ("_prog", "_slot", "_event", "_values", "fetched")
+    __slots__ = ("_prog", "_slot", "_event", "_values", "_launch", "fetched")
 
     def __init__(self, prog: Program, *, slot=None, event=None, values=None):
         self._prog, self._slot, self._event = prog, slot, event
         self._values = values
+        self._launch = None  # the trace's record of this launch (utils.metrics.Launch)
         self.fetched = False
 
     def _wait(self) -> None:
@@ -428,11 +479,14 @@ class Result:
         kernel launches and give the slot back (no-op on the CPU)."""
         if self._event is None:
             return
-        self._event.synchronize()
+        with TRACE.span("device_loop.wait", program=self._prog.name, wait=True):
+            self._event.synchronize()
         host = self._slot.numpy()
         n = self._prog.out.numel()
         self._values = host[:n].copy()
         self._prog._count(host[n:])
+        if self._launch is not None and self._prog.clocked:
+            self._launch.loops = self._prog._loop_seconds(host)
         self._prog._slots.append(self._slot)
         self._slot = self._event = None
 

@@ -345,15 +345,18 @@ class LaneCG:
     minimize_fr_cg's on each lane alone; a lane outside ``keep`` keeps its
     state. No step reads a value on the host: with ``device_loop.Eager`` the
     gates are read there (the CPU's form); in a graph they are conditional
-    nodes. Options as in minimize_fr_cg."""
+    nodes. Options as in minimize_fr_cg; ``name`` names the CG loop's node
+    (its line search's loops are ``bracket`` and ``secant`` inside it)."""
 
     def __init__(self, value_and_grad_fn: Callable, f_fn: Callable | None, lanes: int, dim: int,
                  device, *, max_iters: int = 50, line_search_tol: float = 0.05,
                  grad_tol: float = 1e-3, fun_tol: float = 1e-4,
                  max_fevals_per_linesearch: int = 16, stagnation_patience: int = 1,
                  initial_step: float = 0.1, ladder: str = "sequential", cg_variant: str = "fr",
-                 secant_refine_evals: int = 4, trust_radius: float | None = None):
+                 secant_refine_evals: int = 4, trust_radius: float | None = None,
+                 name: str = "cg"):
         _check_options(ladder, cg_variant)
+        self.name = name
         self.vg = value_and_grad_fn
         f_fn = f_fn if f_fn is not None else (lambda x: value_and_grad_fn(x)[0])
 
@@ -431,14 +434,16 @@ class LaneCG:
     def iteration(self, b) -> None:
         b.seg(self._begin)
         if self.ladder == "sequential":
-            b.repeat(self.bracket_gate, lambda: b.seg(self._bracket_step), trips=self.max_evals)
+            b.repeat(self.bracket_gate, lambda: b.seg(self._bracket_step), trips=self.max_evals,
+                     name="bracket")
             b.seg(self._refine_init)
-        b.repeat(self.refine_gate, lambda: b.seg(self._refine_step), trips=self.refine_evals)
+        b.repeat(self.refine_gate, lambda: b.seg(self._refine_step), trips=self.refine_evals,
+                 name="secant")
         b.seg(self._end)
 
     def solve(self, b, x0: torch.Tensor) -> None:
         b.seg(lambda: self.start(x0))
-        b.repeat(self.keep, lambda: self.iteration(b))
+        b.repeat(self.keep, lambda: self.iteration(b), name=self.name)
 
     def rounds(self, b, num_iters: torch.Tensor) -> None:
         """cg_run_rounds on the state in the buffers, as program steps: up to
@@ -454,7 +459,7 @@ class LaneCG:
             b.seg(lambda: self.n.add_(1))
 
         b.seg(first)
-        b.repeat(device_loop.Gate(self.keep, self.n, num_iters), body)
+        b.repeat(device_loop.Gate(self.keep, self.n, num_iters), body, name=self.name)
 
     def _begin(self) -> None:
         """Direction (restart on a non-descent one) and the ladder's bracket,

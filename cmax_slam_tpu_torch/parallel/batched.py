@@ -34,7 +34,7 @@ from ..config import FrontendConfig
 from ..io import native
 from ..ops import optim, program_pool, warp_local
 from ..utils.device import resolve_device, resolve_devices, to_device
-from ..utils.metrics import logger
+from ..utils.metrics import TRACE, logger
 from .sharding import (batched_packet_solve, cg_body, lane_objective, lane_solver,
                        make_dp_cmax_step, map_shards)
 
@@ -58,8 +58,15 @@ def cut_packets(
 ) -> PacketBatch:
     """Cut a whole stream into fixed-size packets with the reference's
     centered-window semantics (ang_vel_estimator.cpp:74-97); the packet
-    tensors are put on ``device``."""
-    device = resolve_device(device)
+    tensors are put on ``device``. Traced (utils.metrics.TRACE), a
+    ``batched.cut`` span holding the trigger scan, the packets' gather and
+    the upload (a device span, and a wait: the copy is from pageable
+    memory)."""
+    with TRACE.span("batched.cut"):
+        return _cut_packets(xs, ys, ts, lut, cam, cfg, resolve_device(device))
+
+
+def _cut_packets(xs, ys, ts, lut, cam, cfg, device) -> PacketBatch:
     half = cfg.num_events_per_packet // 2
     bs = cfg.warp.event_batch_size
     S = ((2 * half + bs - 1) // bs) * bs
@@ -68,8 +75,9 @@ def cut_packets(
     xs, ys = np.ascontiguousarray(xs, np.int32), np.ascontiguousarray(ys, np.int32)
     ts, lut = np.ascontiguousarray(ts, np.float64), np.ascontiguousarray(lut, np.float32)
     t0 = float(ts[0])
-    trig, _, _ = native.scan_triggers(ts, t0 + 0.5 * cfg.dt_ang_vel, 0, cfg.dt_ang_vel,
-                                      max_out=1 << 22)
+    with TRACE.span("batched.cut_scan"):
+        trig, _, _ = native.scan_triggers(ts, t0 + 0.5 * cfg.dt_ang_vel, 0, cfg.dt_ang_vel,
+                                          max_out=1 << 22)
     trig = trig[(trig + 1 + half) <= len(ts)]  # keep only complete packets
     Pn = len(trig)
     bearings = np.zeros((Pn, S, 3), np.float32)
@@ -77,32 +85,35 @@ def cut_packets(
     weights = np.zeros((Pn, S), np.float32)
     times = np.zeros(Pn, np.float64)
 
-    for k, idx in enumerate(trig):
-        count = int(idx) + 1
-        beg = max(count - half, 0)
-        end = count + half
-        # rigid output grid: t0 + dt/2 + k*dt (ang_vel_estimator.cpp:84-97)
-        t_packet = t0 + 0.5 * cfg.dt_ang_vel + k * cfg.dt_ang_vel
-        b, _, w = native.gather_packet(xs, ys, ts, beg, end, S, lut, cam.width, t_packet)
-        bearings[k] = b
-        weights[k] = w
-        # batch-midpoint dts, relative to the packet grid time
-        n = end - beg
-        valid = np.zeros(S, bool)
-        valid[:n] = True
-        tsb = np.zeros(S)
-        tsb[:n] = ts[beg:end] - t_packet
-        t2 = tsb.reshape(S // bs, bs)
-        v2 = valid.reshape(S // bs, bs)
-        tf = np.where(v2.any(1), np.where(v2, t2, np.inf).min(1), 0.0)
-        tl = np.where(v2.any(1), np.where(v2, t2, -np.inf).max(1), 0.0)
-        dts[k] = np.repeat(tf + 0.5 * (tl - tf), bs).astype(np.float32)
-        times[k] = t_packet
+    with TRACE.span("batched.cut_gather"):
+        for k, idx in enumerate(trig):
+            count = int(idx) + 1
+            beg = max(count - half, 0)
+            end = count + half
+            # rigid output grid: t0 + dt/2 + k*dt (ang_vel_estimator.cpp:84-97)
+            t_packet = t0 + 0.5 * cfg.dt_ang_vel + k * cfg.dt_ang_vel
+            b, _, w = native.gather_packet(xs, ys, ts, beg, end, S, lut, cam.width, t_packet)
+            bearings[k] = b
+            weights[k] = w
+            # batch-midpoint dts, relative to the packet grid time
+            n = end - beg
+            valid = np.zeros(S, bool)
+            valid[:n] = True
+            tsb = np.zeros(S)
+            tsb[:n] = ts[beg:end] - t_packet
+            t2 = tsb.reshape(S // bs, bs)
+            v2 = valid.reshape(S // bs, bs)
+            tf = np.where(v2.any(1), np.where(v2, t2, np.inf).min(1), 0.0)
+            tl = np.where(v2.any(1), np.where(v2, t2, -np.inf).max(1), 0.0)
+            dts[k] = np.repeat(tf + 0.5 * (tl - tf), bs).astype(np.float32)
+            times[k] = t_packet
 
     def put(a):
         return torch.as_tensor(a, device=device)
 
-    return PacketBatch(bearings=put(bearings), dts=put(dts), weights=put(weights), times=times)
+    with TRACE.span("batched.cut_upload", device=True, wait=True):
+        return PacketBatch(bearings=put(bearings), dts=put(dts), weights=put(weights),
+                           times=times)
 
 
 def _init_states(bearings, dts, weights, omega0s, cam, blur_sigma, measure, opt):
@@ -166,7 +177,18 @@ def track_batched_compacted(
     with a program of its own and the states are gathered on ``devices[0]``.
 
     Returns (times, omegas, costs, iters) as numpy, like track_batched.
+
+    Traced (utils.metrics.TRACE), a ``batched.track`` span holding each
+    sweep (``batched.sweep``: its data, ``init``, and each round's load,
+    launch, wait and compaction) and the answers' copy to the host.
     """
+    with TRACE.span("batched.track"):
+        return _track_batched_compacted(batch, cam, cfg, sweeps, round_schedule, min_bucket,
+                                        cold_decimate, devices)
+
+
+def _track_batched_compacted(batch, cam, cfg, sweeps, round_schedule, min_bucket,
+                             cold_decimate, devices):
     opt = cfg.optim
     blur_sigma = cfg.warp.blur_sigma
     measure = cfg.contrast_measure
@@ -196,13 +218,16 @@ def track_batched_compacted(
         lanes = idx[part]
         prog = lane_solver(owners[i], cam, blur_sigma, measure, opt, dev, len(lanes),
                            data[dev][1].shape[1], rounds=True)
-        sel, sel_home = to_device(lanes, dev), to_device(lanes, home)
         with torch.no_grad():
-            prog.load(data[dev], sel)
-            for buf, t in zip(prog.cg.s, st):
-                buf.copy_(t.index_select(0, sel_home))
-            prog.round_iters.fill_(round_iters)
-            vals = prog.program.run().fetch()
+            with TRACE.span("batched.round_load"):
+                sel, sel_home = to_device(lanes, dev), to_device(lanes, home)
+                prog.load(data[dev], sel)
+                for buf, t in zip(prog.cg.s, st):
+                    buf.copy_(t.index_select(0, sel_home))
+                prog.round_iters.fill_(round_iters)
+            with TRACE.span("batched.launch"):
+                result = prog.program.run()
+            vals = result.fetch()
         return optim.CGState(*(t.to(home) for t in prog.cg.s)), vals
 
     def gather(outs):
@@ -211,48 +236,53 @@ def track_batched_compacted(
 
     st = None
     for sweep in range(max(sweeps, 1)):
-        final = sweep == max(sweeps, 1) - 1
-        if sweep > 0:
-            omega0 = torch.cat([st.x[:1], st.x[:-1]])  # left neighbour's solution
-            k = 1
-        else:
-            omega0 = torch.zeros((Pn, 3), dtype=torch.float32, device=home)
-            k = 1 if final else max(cold_decimate, 1)
-        sweep_data = [t[:, ::k] for t in (batch.bearings, batch.dts, batch.weights)]
-        data = {dev: [t.to(dev).contiguous() for t in sweep_data] for dev in set(devs)}
-        parts = np.array_split(np.arange(Pn), len(devs))
-        st = gather(map_shards(devs, init, parts))
-        # cg_init leaves every lane RUNNING at 0 line searches: nothing to read.
-        status = np.full(Pn, optim.RUNNING, np.int64)
-        it = np.zeros(Pn, np.int64)
-        active = np.arange(Pn)
-        t_sweep = time.perf_counter()
-        rounds = 0
-        while True:
-            active = active[(status[active] == optim.RUNNING) & (it[active] < max_ls)]
-            n = len(active)
-            if n == 0:
-                break
-            bucket = _quantize_bucket(n, min_bucket)
-            # {1,1.25,1.5,1.75}x2^k sizes divide evenly only over power-of-two
-            # device counts: round up (e.g. 6 devices: 28 -> 30).
-            bucket = -(-bucket // len(devs)) * len(devs)
-            idx = np.resize(active, bucket)  # pad by cycling (extras ignored)
-            round_iters = min(round_schedule[min(rounds, len(round_schedule) - 1)], max_ls)
-            shards = np.array_split(np.arange(bucket), len(devs))
-            outs = map_shards(range(len(devs)),
-                              lambda i, part: round_shard(i, part, round_iters), shards)
-            out = gather([o[0] for o in outs])
-            vals = np.concatenate([o[1].reshape(2, -1) for o in outs], axis=1)
-            act = to_device(active, home)
-            st = optim.CGState(*(t.index_copy(0, act, o[:n]) for t, o in zip(st, out)))
-            status[active], it[active] = vals[0, :n], vals[1, :n]
-            rounds += 1
-            logger.debug("[batched] sweep %d round %d: %d active (bucket %d)",
-                         sweep, rounds, n, bucket)
-        logger.info("[batched] sweep %d: %d rounds, %.3fs, mean iters %.1f", sweep, rounds,
-                    time.perf_counter() - t_sweep, float(it.mean()))
-    return (batch.times, *_to_host(st.x, st.f, st.it))
+        with TRACE.span("batched.sweep"):
+            final = sweep == max(sweeps, 1) - 1
+            with TRACE.span("batched.data", device=True):
+                if sweep > 0:
+                    omega0 = torch.cat([st.x[:1], st.x[:-1]])  # left neighbour's solution
+                    k = 1
+                else:
+                    omega0 = torch.zeros((Pn, 3), dtype=torch.float32, device=home)
+                    k = 1 if final else max(cold_decimate, 1)
+                sweep_data = [t[:, ::k] for t in (batch.bearings, batch.dts, batch.weights)]
+                data = {dev: [t.to(dev).contiguous() for t in sweep_data] for dev in set(devs)}
+            parts = np.array_split(np.arange(Pn), len(devs))
+            with TRACE.span("batched.init"):
+                st = gather(map_shards(devs, init, parts))
+            # cg_init leaves every lane RUNNING at 0 line searches: nothing to read.
+            status = np.full(Pn, optim.RUNNING, np.int64)
+            it = np.zeros(Pn, np.int64)
+            active = np.arange(Pn)
+            t_sweep = time.perf_counter()
+            rounds = 0
+            while True:
+                active = active[(status[active] == optim.RUNNING) & (it[active] < max_ls)]
+                n = len(active)
+                if n == 0:
+                    break
+                bucket = _quantize_bucket(n, min_bucket)
+                # {1,1.25,1.5,1.75}x2^k sizes divide evenly only over power-of-two
+                # device counts: round up (e.g. 6 devices: 28 -> 30).
+                bucket = -(-bucket // len(devs)) * len(devs)
+                idx = np.resize(active, bucket)  # pad by cycling (extras ignored)
+                round_iters = min(round_schedule[min(rounds, len(round_schedule) - 1)], max_ls)
+                shards = np.array_split(np.arange(bucket), len(devs))
+                outs = map_shards(range(len(devs)),
+                                  lambda i, part: round_shard(i, part, round_iters), shards)
+                with TRACE.span("batched.compact"):
+                    out = gather([o[0] for o in outs])
+                    vals = np.concatenate([o[1].reshape(2, -1) for o in outs], axis=1)
+                    act = to_device(active, home)
+                    st = optim.CGState(*(t.index_copy(0, act, o[:n]) for t, o in zip(st, out)))
+                    status[active], it[active] = vals[0, :n], vals[1, :n]
+                rounds += 1
+                logger.debug("[batched] sweep %d round %d: %d active (bucket %d)",
+                             sweep, rounds, n, bucket)
+            logger.info("[batched] sweep %d: %d rounds, %.3fs, mean iters %.1f", sweep, rounds,
+                        time.perf_counter() - t_sweep, float(it.mean()))
+    with TRACE.span("batched.to_host", device=True, wait=True):
+        return (batch.times, *_to_host(st.x, st.f, st.it))
 
 
 def _to_host(x, f, it):

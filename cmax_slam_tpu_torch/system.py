@@ -24,7 +24,7 @@ from .frontend import AngVelEstimate, Frontend
 from .io.events import EventStore
 from .ops.warp_local import CameraParams
 from .utils.device import resolve_device
-from .utils.metrics import Metrics
+from .utils.metrics import TRACE, Metrics
 
 
 class CMaxSLAM:
@@ -77,23 +77,28 @@ class CMaxSLAM:
 
         With a back-end the returned estimates may still be in flight (see
         AngVelEstimate): call ``frontend.finalize_batch(ests)``, or read
-        ``ang_vel_log``, before reading their fields."""
-        rate = self.cfg.frontend_event_sample_rate
-        self._raw_count += len(ts)
-        if rate > 1:
-            # phase-continuous every-rate-th selection across chunks
-            n = len(ts)
-            sel = (np.arange(n) + self._decim_phase) % rate == 0
-            self._decim_phase = (self._decim_phase + n) % rate
-            xs, ys, ts, ps = xs[sel], ys[sel], ts[sel], ps[sel]
+        ``ang_vel_log``, before reading their fields.
 
-        estimates = self.frontend.push_events(xs, ys, ts, ps)
-        if self.backend is not None:
-            for est in estimates:
-                self.backend.push_ang_vel(est.t, est)
-            while self.backend.ready():
-                self.backend.step()
-        return estimates
+        Traced (utils.metrics.TRACE), a ``system.push`` span holding the
+        time of the chunk's last event."""
+        last = float(ts[-1]) if TRACE.recording and len(ts) else None
+        with TRACE.span("system.push", t_event=last):
+            rate = self.cfg.frontend_event_sample_rate
+            self._raw_count += len(ts)
+            if rate > 1:
+                # phase-continuous every-rate-th selection across chunks
+                n = len(ts)
+                sel = (np.arange(n) + self._decim_phase) % rate == 0
+                self._decim_phase = (self._decim_phase + n) % rate
+                xs, ys, ts, ps = xs[sel], ys[sel], ts[sel], ps[sel]
+
+            estimates = self.frontend.push_events(xs, ys, ts, ps)
+            if self.backend is not None:
+                for est in estimates:
+                    self.backend.push_ang_vel(est.t, est)
+                while self.backend.ready():
+                    self.backend.step()
+            return estimates
 
     def run(self, chunks: Iterable) -> None:
         """Drive the full pipeline from an iterator of event chunks."""
@@ -104,7 +109,8 @@ class CMaxSLAM:
         """Join the back-end's window in flight (the analog of waiting for
         the reference's worker thread to drain, src/cmax_slam.cpp:92)."""
         if self.backend is not None:
-            self.backend.flush()
+            with TRACE.span("system.flush"):
+                self.backend.flush()
 
     # ------------------------------------------------------------------
     @property

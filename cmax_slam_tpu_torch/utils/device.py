@@ -41,10 +41,20 @@ def to_device(array, device, dtype=None) -> torch.Tensor:
     PyTorch's caching host allocator, which records an event on the stream
     with the copy and reuses the buffer only once that event has completed.
     On the CPU the result may share memory with ``array``."""
+    return upload(stage(array, device, dtype), device)
+
+
+def stage(array, device, dtype=None) -> torch.Tensor:
+    """The host half of ``to_device``: ``array`` as a tensor ready for the
+    upload to ``device`` (a pinned copy for a CUDA device)."""
     host = torch.as_tensor(array)
     if dtype is not None:
         host = host.to(dtype)
+    return host.pin_memory() if torch.device(device).type == "cuda" else host
+
+
+def upload(staged: torch.Tensor, device) -> torch.Tensor:
+    """The device half of ``to_device``: a tensor from ``stage`` on
+    ``device`` (a ``non_blocking`` copy for a CUDA device)."""
     device = torch.device(device)
-    if device.type != "cuda":
-        return host
-    return host.pin_memory().to(device, non_blocking=True)
+    return staged if device.type != "cuda" else staged.to(device, non_blocking=True)

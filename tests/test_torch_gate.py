@@ -56,12 +56,12 @@ class _Counting(device_loop.Eager):
         super().__init__()
         self.holds, self.preds = holds, []
 
-    def when(self, gate_t, body):
+    def when(self, gate_t, body, name=None):
         self.preds.append(1)
         if self.holds(gate_t):
             body()
 
-    def repeat(self, gate_t, body, trips=None):
+    def repeat(self, gate_t, body, trips=None, name=None):
         slot = len(self.preds)
         self.preds.append(1)
         while self.holds(gate_t):
@@ -208,13 +208,13 @@ class _Recorder(device_loop.Eager):
         super().__init__()
         self.gates = []
 
-    def when(self, gate_t, body):
+    def when(self, gate_t, body, name=None):
         self.gates.append(device_loop.as_gate(gate_t))
-        super().when(gate_t, body)
+        super().when(gate_t, body, name)
 
-    def repeat(self, gate_t, body, trips=None):
+    def repeat(self, gate_t, body, trips=None, name=None):
         self.gates.append(device_loop.as_gate(gate_t))
-        super().repeat(gate_t, body, trips)
+        super().repeat(gate_t, body, trips, name)
 
 
 def _storage(g):
