@@ -8,8 +8,8 @@ Phases, in order; any failure exits non-zero:
 2. build: the host data plane's library (io/native.py: native/evstream.cpp
    with the host C++ compiler into _build/; native.available() must hold),
    then csrc/iwe.cu (the vote kernels), csrc/loop.cu (the loop predicate
-   and graph assembly) and csrc/pano_vote.cu (K4/K5), one nvcc each,
-   started together; prints the seconds of each;
+   and graph assembly), csrc/pano_vote.cu (K4/K5) and csrc/packet.cu (K6),
+   one nvcc each, started together; prints the seconds of each;
 3. kernels: each kernel against its plain PyTorch version on the card, at the
    main path's shapes (front-end rung sweep, back-end window on a crop,
    old/new split on the full panorama, the batched tracker's lanes) and at
@@ -49,6 +49,17 @@ Phases, in order; any failure exits non-zero:
    knot, two K5 launches torch.equal; device times (with --parent the
    parent's K4/K5 too, in turns) beside the bound and the launch floor, the
    wrapper's, the plain version's and the composed route's (K1/K2) times.
+   Then K6 (ops/cuda_packet.py: the front-end's packet objective in one
+   launch) against the chain (warp_events, K1/K2, the band matmuls,
+   autograd) at PACKET_SHAPES (the ijrr and default presets' packet and
+   9-rung sweep on 180x240, the mean square, a packet of padding alone, a
+   packet whose events crowd two blocks' rows past their lists, live_davis'
+   packet and sweep on 260x346):
+   its "vg" and "f" forms, the value within PACKET_F_RTOL and the gradient
+   within PACKET_G_RTOL of its scale, padding alone exactly the chain's
+   zeros, the planner's route and the launches counted; per shape each
+   form's device time, replay time and graph nodes beside the chain's,
+   the wrapper times and the bound.
    Then the loop predicate: a WHILE node gated on a mask of 1, 24 and 2016
    lanes (live lanes first, middle, last, all, none) and an iteration
    counter under a limit, with a nested IF node, run as one graph against
@@ -82,8 +93,10 @@ Phases, in order; any failure exits non-zero:
    predicate's executions, captures and their seconds, the waits per
    packet, per stride and per window and the peak device memory, and the
    nodes of one CG iteration of the packet and crop-window programs; K4
-   and K5 must have run. A captured evaluation
-   of the packet objective must match the same objective on the plain vote
+   and K5 must have run; every packet objective evaluation on the card on
+   the route its program planned (K6's share of them printed per run; 1 in
+   the stock system). A captured evaluation
+   of the packet objective (K6) must match the chain on the plain vote
    on the card, and one of the crop objective (through K4/K5) the composed
    route (K1/K2) and the plain version; each objective's evaluation
    (packet, crop and full panorama, the latter two through K4/K5 and
@@ -980,6 +993,187 @@ def check_jvp(rng, floor_ms: float) -> dict:
     return out
 
 
+# K6's shapes (tag, candidates, events, measure, events' kind, camera): the
+# ijrr preset's packet (a value and gradient) and sweep (the vector ladder's
+# 9 rungs), the default preset's (30 000 events), the mean square at the
+# ijrr packet, a packet of weight-0 padding alone, and the default packet's
+# events folded into 20 rows ("band": two blocks of the cluster hold them
+# all, more than their warps' lists take, so K6 votes the rest at once and
+# its gather reads every event again), on make_stream's 240x180 camera
+# (None); live_davis' packet (5 000 events) and sweep on a 346x260 camera
+# (the presets phase's).
+LIVE_CAMERA = (346, 260, 260.0)
+PACKET_SHAPES = (("packet", 1, 10_000, 0, "stream", None),
+                 ("sweep", 9, 10_000, 0, "stream", None),
+                 ("default_packet", 1, 30_000, 0, "stream", None),
+                 ("default_sweep", 9, 30_000, 0, "stream", None),
+                 ("mean_square", 1, 10_000, 1, "stream", None),
+                 ("padding", 1, 10_000, 0, "padding", None),
+                 ("band", 1, 30_000, 0, "band", None),
+                 ("live_packet", 1, 5_000, 0, "stream", LIVE_CAMERA),
+                 ("live_sweep", 9, 5_000, 0, "stream", LIVE_CAMERA))
+# K6 against the chain (K1/K2, the band matmuls, autograd) on the card: the
+# value within PACKET_F_RTOL of it, the gradient within PACKET_G_RTOL of its
+# largest component (the votes sum with atomics in a run-dependent order,
+# and the blur's sums run in another order than the matmuls').
+PACKET_F_RTOL, PACKET_G_RTOL = 1e-5, 2e-3
+
+
+def _stream_packet(n: int, kind: str = "stream", camera: tuple | None = None):
+    """(packet, camera, omega, u) for n consecutive events of make_stream's
+    stream on ``camera`` from 0.5 s, packed as the front-end packs them
+    (100-event batches, dts from the packet's middle), with 200 weight-0
+    events after them; ``kind`` "padding": weight 0 for all, "band": every
+    event's row folded into rows 80-99; omega the stream's truth and u a
+    unit direction for the rungs."""
+    import torch
+    from cmax_slam_tpu_torch.calib import bearing_lut
+    from cmax_slam_tpu_torch.ops import warp_local
+
+    ev, omega, calib = make_stream(2.0, camera=camera or STREAM_CAMERA)
+    cam = _cam(calib)
+    i0 = int(np.searchsorted(ev.ts, 0.5))
+    S = n + 200
+    xs, ys, ts = np.zeros(S, np.int32), np.zeros(S, np.int32), np.zeros(S, np.float32)
+    xs[:n], ys[:n] = ev.xs[i0:i0 + n], ev.ys[i0:i0 + n]
+    if kind == "band":
+        ys[:n] = 80 + ys[:n] % 20
+    ts[:n] = ev.ts[i0:i0 + n] - ev.ts[i0]
+    valid = np.zeros(S, bool) if kind == "padding" else np.arange(S) < n
+    lut = torch.as_tensor(bearing_lut(calib), device="cuda")
+    packet = warp_local.make_packet(*(torch.as_tensor(a, device="cuda") for a in (xs, ys, ts)),
+                                    torch.as_tensor(valid, device="cuda"), lut, cam, 100,
+                                    float(np.float32(0.5 * ts[n - 1])))
+    u = np.array([0.3, 0.5, -0.8])
+    return packet, cam, np.float32(omega), u / np.linalg.norm(u)
+
+
+def _lists_overflow(packet, cam, x, measure) -> bool:
+    """Whether K6's per-warp lists overflow at the first candidate of x: in
+    some block of its cluster some warp warps more events with taps in the
+    block's rows than its list holds (cuda_packet.plan_packet_vg's cap)."""
+    import torch
+    from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_packet, warp_local
+
+    H, W, n = cam.height, cam.width, packet.dts.shape[0]
+    plan = cuda_packet.plan_packet_vg(1, n, H, W, 1.0, measure,
+                                      cuda_iwe.device_attrs(packet.dts.device)[1])
+    px, py = warp_local.warp_events(x.reshape(-1, 3)[:1], packet, cam)
+    fx, fy = torch.floor(px[0]), torch.floor(py[0])
+    kept = (fx >= 1) & (fx < W - 2) & (fy >= 1) & (fy < H - 2) & (packet.weights != 0)
+    warp = (torch.arange(n, device=fy.device) % cuda_packet.THREADS) // 32
+    for k in range(cuda_packet.CLUSTER):
+        r0, r1 = k * H // cuda_packet.CLUSTER, (k + 1) * H // cuda_packet.CLUSTER
+        mine = kept & (fy >= r0 - 1) & (fy < r1)
+        per_warp = torch.bincount(warp[mine], minlength=cuda_packet.WARPS)
+        if int(per_warp.max()) > plan.cap // cuda_packet.WARPS:
+            return True
+    return False
+
+
+def _graph_of(fn, x):
+    """``fn(x)`` captured alone into a CUDA graph (after a warm-up on a side
+    stream), launches recorded, not counted: (graph, its nodes)."""
+    import torch
+    from cmax_slam_tpu_torch.ops import cuda_iwe, device_loop
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), cuda_iwe.recording([]):
+        fn(x)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.stream(side), cuda_iwe.recording([]):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            fn(x)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    nodes = device_loop.graph_nodes(graph)
+    graph.instantiate()
+    return graph, nodes
+
+
+def check_packet_objective(floor_ms: float) -> dict:
+    """K6 (ops/cuda_packet.py) against the chain at PACKET_SHAPES on the
+    card: both forms ("vg" value and gradient, "f" the value), each
+    candidate of a sweep, the planner's route at each shape, the launches
+    counted; padding alone gives exactly the chain's value and gradient
+    (zero). Prints per shape the value's relative error and the gradient's
+    largest error against its scale, each form's device time (torch.profiler
+    over graph replays, the kernels of one evaluation summed) and replay
+    time beside the chain's, the nodes of each captured evaluation, and the
+    bound (the events read once and the outputs written once over
+    HBM_BYTES_PER_S)."""
+    import torch
+    from cmax_slam_tpu_torch.ops import cuda_iwe, warp_local
+
+    out = {"by_shape": {}, "f_rel_err": 0.0, "g_err_over_scale": 0.0, "ok": True}
+    for tag, b, n, measure, kind, camera in PACKET_SHAPES:
+        packet, cam, omega, u = _stream_packet(n, kind, camera)
+        padding = kind == "padding"
+        x = torch.as_tensor(omega[None] + (0.05 * 2.0 ** np.arange(-(b // 2), b - b // 2))[:, None]
+                            * u[None], dtype=torch.float32, device="cuda")
+        x = x[None] if b > 1 else x  # the sweep as (1, M, 3), as the ladder calls f
+        route = warp_local.objective_route(packet, cam, 1.0, measure)
+        fused = warp_local.make_local_objective(packet, cam, 1.0, measure, route="fused")
+        chain = warp_local.make_local_objective(packet, cam, 1.0, measure, route="chain")
+        before = dict(cuda_iwe.LAUNCHES)
+        v, g = fused[1](x)
+        f = fused[0](x)
+        launched = {k: cuda_iwe.LAUNCHES[k] - before[k] for k in ("packet_vg", "packet_f")}
+        v_ref, g_ref = chain[1](x)
+        f_ref = chain[0](x)
+        torch.cuda.synchronize()
+        scale = float(g_ref.abs().max())
+        f_err = float(((v - v_ref).abs() / v_ref.abs().clamp(min=1e-30)).max())
+        f_only_err = float(((f - f_ref).abs() / f_ref.abs().clamp(min=1e-30)).max())
+        g_err = float((g - g_ref).abs().max())
+        if padding:
+            ok = (torch.equal(v.abs(), v_ref.abs()) and torch.equal(g.abs(), g_ref.abs())
+                  and scale == 0.0)
+        else:
+            ok = (max(f_err, f_only_err) < PACKET_F_RTOL and g_err < PACKET_G_RTOL * scale
+                  and scale > 0)
+        ok &= route == "fused" and launched == {"packet_vg": 1, "packet_f": 1}
+        overflow = _lists_overflow(packet, cam, x, measure)
+        ok &= overflow == (kind == "band")  # the band packet takes K6's other path
+        entry = {"b": b, "n": n, "hw": [cam.height, cam.width], "measure": measure,
+                 "route": route, "lists_overflow": overflow, "value": v.tolist(),
+                 "f_rel_err": max(f_err, f_only_err), "g_abs_err": g_err, "g_scale": scale,
+                 "g_err_over_scale": g_err / scale if scale else 0.0, "ok": bool(ok)}
+        nbytes = 20 * n + 12 * b + 4 * b
+        entry["bound_us"] = nbytes / HBM_BYTES_PER_S * 1e6
+        for name, fn in (("vg", fused[1]), ("f", fused[0]), ("chain_vg", chain[1]),
+                         ("chain_f", chain[0])):
+            graph, (nodes, kernels) = _graph_of(fn, x)
+            dev_ms, ev_ms = device_ms(graph.replay, reps=50)
+            entry[name] = {"nodes": nodes, "kernel_nodes": kernels, "device_us": dev_ms * 1e3,
+                           "replay_us": ev_ms * 1e3,
+                           "share": entry["bound_us"] / (dev_ms * 1e3) if dev_ms else None}
+            del graph
+        entry["wrapper_ms"] = _time_ms(lambda: fused[1](x), reps=20)
+        entry["chain_wrapper_ms"] = _time_ms(lambda: chain[1](x), reps=20)
+        out["by_shape"][tag] = entry
+        out["ok"] &= bool(ok)
+        if not padding:
+            out["f_rel_err"] = max(out["f_rel_err"], entry["f_rel_err"])
+            out["g_err_over_scale"] = max(out["g_err_over_scale"], entry["g_err_over_scale"])
+        _log(f"packet_objective {tag} (B {b}, N {n}, {cam.height}x{cam.width}, measure "
+             f"{measure}): route "
+             f"{route}, lists overflow {overflow}; value rel err {entry['f_rel_err']:.3e} (tol {PACKET_F_RTOL}), gradient "
+             f"abs err {g_err:.3e} of scale {scale:.4e} (tol {PACKET_G_RTOL} of it); K6 vg "
+             f"{entry['vg']['device_us']:.2f} us device ({entry['vg']['nodes']} nodes), f "
+             f"{entry['f']['device_us']:.2f} us; chain vg {entry['chain_vg']['device_us']:.2f} "
+             f"us ({entry['chain_vg']['nodes']} nodes), f {entry['chain_f']['device_us']:.2f} "
+             f"us; replay vg {entry['vg']['replay_us']:.2f} against the chain's "
+             f"{entry['chain_vg']['replay_us']:.2f} us; bound {entry['bound_us']:.4f} us; "
+             f"wrapper {entry['wrapper_ms']:.4f} ms (chain {entry['chain_wrapper_ms']:.4f}); "
+             f"floor {floor_ms * 1e3:.2f} us; ok {ok}")
+    return out
+
+
 def pano_bound(kernel: str, M: int, N: int, live: int, B: int, K: int, order: int, H: int,
                W: int) -> dict:
     """The least time of one K4 or K5 launch (see HBM_BYTES_PER_S): the
@@ -1397,6 +1591,19 @@ def _launches() -> dict:
     return (dict(cuda_iwe.LAUNCHES)
             | {f"graph_{k}": v for k, v in cuda_iwe.GRAPH_LAUNCHES.items()}
             | {f"host_{k}": v for k, v in native.CALLS.items()})
+
+
+def _fused_share(launches: dict):
+    """The share of the packet objective's evaluations on the card that K6
+    served (None where none ran)."""
+    total = launches["packet"] + launches["packet_chain"]
+    return launches["packet"] / total if total else None
+
+
+def _votes_launched(launches: dict) -> bool:
+    """K1 launched, and the packet objectives' gradients through K2 (the
+    chain) or K6."""
+    return launches["fwd"] > 0 and launches["bwd"] + launches["packet_vg"] > 0
 
 
 def _reset_launches():
@@ -1888,7 +2095,7 @@ def drive(cfg, ev, omega, calib, device: str, label: str, duration: float, n: in
     checks = {
         "state on the device": all(t.device.type == device for t in (
             be.IG, be.update_times, be.lut_dev, slam.frontend.lut)),
-        "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+        "K1 launched, and K2 or K6": _votes_launched(launches),
         "K4 and K5 launched": launches["pano_fwd"] > 0 and launches["pano_bwd"] > 0,
         "every push scanned through the host library": (
             launches["host_scan_triggers"] == scan["calls"] == pushes > 0),
@@ -1897,6 +2104,17 @@ def drive(cfg, ev, omega, calib, device: str, label: str, duration: float, n: in
         "each window returned once by step/flush": (
             returned + ([tail.index] if tail is not None else []) == [w.index for w in wins]),
     }
+    routes = sorted({r for p in slam.frontend._entry.programs.values() for r in p.routes})
+    graphs["objective_routes"] = routes
+    graphs["fused_share"] = _fused_share(launches) if device == "cuda" else None
+    _log(f"{label}: front-end objectives by route {routes}; packet objective evaluations: "
+         f"K6 {launches['packet']} ({launches['packet_vg']} vg, {launches['packet_f']} f), "
+         f"chain {launches['packet_chain']} ({launches['packet_chain_vg']} vg, "
+         f"{launches['packet_chain_f']} f); K6's share {graphs['fused_share']}")
+    if device == "cuda":
+        checks["each objective evaluated on its route"] = all(
+            (launches[k] > 0) == (r in routes) for k, r in (("packet", "fused"),
+                                                           ("packet_chain", "chain")))
     if rms_deg is not None:
         checks[f"RMS < {rms_deg} deg"] = rms < rms_deg
     checks |= _graph_checks(graphs, cfg, device)
@@ -2203,7 +2421,7 @@ def run_resume(device: str = "cuda", duration: float = 1.0):
         "same window count": resumed.backend.count_window == whole.backend.count_window,
         "same refined-pose times": len(t_a) == len(t_c) and np.allclose(t_a, t_c, atol=1e-9),
         "resumed vs uninterrupted RMS < 0.05 deg": bool(rms < 0.05),
-        "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+        "K1 launched, and K2 or K6": _votes_launched(launches),
         "K4 and K5 launched": launches["pano_fwd"] > 0 and launches["pano_bwd"] > 0,
     }
     return launches, checks
@@ -2311,7 +2529,7 @@ def run_cli(device: str = "cuda", duration: float = 2.0, extra: tuple = (),
             "iwe and map dumps": (any(f.startswith("local_iwe_") for f in files)
                                   and any(f.startswith("pano_map_") for f in files)),
             "K1 in IWE renders": render_launches[0] > 0,
-            "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+            "K1 launched, and K2 or K6": _votes_launched(launches),
             "K4 and K5 launched": launches["pano_fwd"] > 0 and launches["pano_bwd"] > 0,
             "every event read": stats["events"] == n_parsed == n,
             ">= 15 windows": stats["windows"] >= 15,
@@ -2658,7 +2876,7 @@ def run_replay(devices=("cuda:0", "cuda:0"), duration: float = 2.0):
         "the live segments lease distinct entries": all(
             a is not b for a, b in zip(*entries)),
         "every segment ran its back-end": all(w >= 2 for w in wins),
-        "both kernels launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+        "K1 launched, and K2 or K6": _votes_launched(launches),
         "K4 and K5 launched": launches["pano_fwd"] > 0 and launches["pano_bwd"] > 0,
     }
     return launches, checks
@@ -3093,7 +3311,9 @@ def _images_by(images):
 
 def _objective_cases(slam, ev) -> dict:
     """Phase 4's objectives at its shapes, {name: (f, value_and_grad, x,
-    images)}: the packet objective of a solved packet, and on the window
+    images)}: the packet objective of a solved packet on the planner's route
+    (K6 at the stock preset's) and on the chain ("packet_chain"; "packet_plain"
+    is the chain the plain vote serves), and on the window
     loaded last into a crop program (none if phase 4 ran no crop window) the
     crop objective and the full-panorama objective, each through K4/K5
     ("fused", the main path: images None) and the composed route
@@ -3109,10 +3329,12 @@ def _objective_cases(slam, ev) -> dict:
     beg, end = est.span
     packet = fe._packet(ev.xs[beg:end], ev.ys[beg:end], ev.ts[beg:end],
                         float(np.float32(est.t - fe._t0)))
-    f, vg = warp_local.make_local_objective(packet, fe.cam, fe.cfg.warp.blur_sigma,
-                                            fe.cfg.contrast_measure)
-    cases = {"packet": (f, vg, torch.tensor([est.omega], dtype=torch.float32, device="cuda"),
-                        None)}
+    x = torch.tensor([est.omega], dtype=torch.float32, device="cuda")
+    cases = {name: (*warp_local.make_local_objective(packet, fe.cam, fe.cfg.warp.blur_sigma,
+                                                     fe.cfg.contrast_measure, route=route),
+                    x, None)
+             for name, route in (("packet", None), ("packet_chain", "chain"),
+                                 ("packet_plain", "chain"))}
     solver = next((s for key, s in be._entry.programs.items() if key[3] is not None), None)
     if solver is not None:
         K = solver.win.knots.shape[0]
@@ -3153,8 +3375,8 @@ def _objective_program(vg, x, name: str):
 
 def check_captured_objectives(slam, ev) -> dict:
     """A captured evaluation (value and gradient) of the packet objective
-    (K1 and K2 inside the graph) against the same objective on the plain
-    vote on the card, and of the back-end crop objective through K4/K5
+    (K6 inside the graph at the stock preset's shapes) against the chain on
+    the plain vote on the card, and of the back-end crop objective through K4/K5
     against the composed route (K1/K2) and the plain version, at phase 4's
     shapes, and with --parent the same crop evaluation through the parent's
     K4/K5. The votes sum with atomics in a run-dependent order: f within
@@ -3167,7 +3389,7 @@ def check_captured_objectives(slam, ev) -> dict:
     vote = warp_local.vote
     warp_local.vote = scatter.bilinear_accumulate  # the plain version, on the card
     try:
-        v, g = cases["packet"][1](cases["packet"][2])
+        v, g = cases["packet_plain"][1](cases["packet_plain"][2])
         refs["packet"] = ("plain vote", torch.cat([v, g[0]]).cpu().numpy())
     finally:
         warp_local.vote = vote
@@ -3232,7 +3454,7 @@ def split_objectives(slam, ev, reps: int = 20, only=None) -> dict:
         out[name] = {}
         for mode, fn in (("value", f), ("value_and_grad", vg)):
             event_ops = None
-            if name != "packet":
+            if not name.startswith("packet"):
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                              record_shapes=True) as prof, _images_by(images):
                     fn(x)
@@ -3741,7 +3963,7 @@ def run_preset(name: str, device: str = "cuda", stream: dict | None = None,
         "cli rc 0": rc == 0,
         "every event read": stats["events"] == n,
         "six outputs": all(f in files for f in outputs),
-        "K1 and K2 launched": launches["fwd"] > 0 and launches["bwd"] > 0,
+        "K1 launched, and K2 or K6": _votes_launched(launches),
         "K4 and K5 launched": launches["pano_fwd"] > 0 and launches["pano_bwd"] > 0,
         "loop predicate ran": device != "cuda" or graphs["pred"] > 0,
         f"BA in >= {run['min_ba']} windows": n_ba >= run["min_ba"],
@@ -4135,7 +4357,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from cmax_slam_tpu_torch.io import native
-    from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_pano_vote, device_loop, nvcc, program_pool
+    from cmax_slam_tpu_torch.ops import (cuda_iwe, cuda_packet, cuda_pano_vote, device_loop,
+                                         nvcc, program_pool)
 
     card = card_line()
     _log(f"card: {card}  (torch {torch.__version__}, CUDA {torch.version.cuda})")
@@ -4152,7 +4375,8 @@ def main() -> int:
     fewer_per_gate = (float(sys.argv[sys.argv.index("--fewer-nodes-per-gate") + 1])
                       if "--fewer-nodes-per-gate" in sys.argv else None)
     t0 = time.perf_counter()
-    jobs = [cuda_iwe.build_job(), device_loop.build_job(), cuda_pano_vote.build_job()]
+    jobs = [cuda_iwe.build_job(), device_loop.build_job(), cuda_pano_vote.build_job(),
+            cuda_packet.build_job()]
     global PARENT_JVP, JVP_FLOOR_MS
     if parent is not None:  # the parent's K3 and K4/K5, for phase 3 in turns
         PARENT_JVP = ParentJvp(parent)
@@ -4167,12 +4391,15 @@ def main() -> int:
     cuda_iwe.build()
     device_loop.build()
     cuda_pano_vote.build()
+    cuda_packet.build()
     _log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(j[2].name for j in jobs)})")
     rng = np.random.default_rng(0)
     kernels = check_kernels(rng)
     JVP_FLOOR_MS = kernels["bwd"]["floor_ms"]
     jvp = check_jvp(rng, JVP_FLOOR_MS)
     pano = check_pano_vote(rng, kernels["bwd"]["floor_ms"])
+    packet_obj = check_packet_objective(kernels["bwd"]["floor_ms"])
+    _require("packet objective", {"K6 matches the chain at every shape": packet_obj["ok"]})
     pred = check_loop_pred()
     _require("loop predicate", {"graph and host gate agree": pred["ok"],
                                 "launches in flight fetch their own numbers":
@@ -4193,6 +4420,7 @@ def main() -> int:
          f" for {crop_windows:.0f} crop windows")
     checks["K1 votes on a crop once per crop window"] = (
         fwd_buckets.get("crop", {}).get("launches", 0) <= crop_windows)
+    checks["K6 serves every front-end objective evaluation"] = _fused_share(launches) == 1.0
     _require("system", checks)
     cg_nodes = cg_iteration_nodes(slam)
     _log("system: nodes per CG iteration (nodes, kernel nodes, gates; each inner loop's body "
@@ -4392,6 +4620,24 @@ def main() -> int:
         "shape": f"real: a phase-4 window's derivative images, {deriv['knots'] * 3}x"
                  f"{deriv['events']}@{deriv['shape'][2]}x{deriv['shape'][3]}",
         "by_shape": jvp["by_shape"] | {"real": real}, "derivative_images": deriv})
+    rows.append({
+        "name": "packet_objective", "route": "cuda", "source": "cmax_slam_tpu_torch/csrc/packet.cu",
+        "replaces": "the chain of ops/warp_local.make_local_objective (warp_events, K1, the "
+                    "blur's band matmuls, the measure, autograd with K2); no Pallas kernel: "
+                    "cmax_slam_tpu/ops/warp_local.py's objective, which XLA fuses around "
+                    "cmax_slam_tpu/ops/pallas_iwe.py:289 and :350",
+        "launches": launches["packet"], "launches_by_path": by_path("packet"),
+        "launches_in_graphs_by_path": by_path("graph_packet"),
+        "forms_by_path": {form: by_path(f"packet_{form}") for form in ("vg", "f")},
+        "chain_evaluations_by_path": by_path("packet_chain"),
+        "fused_share_by_path": {p: _fused_share(c) for p, c in paths.items()},
+        "max_f_rel_err": packet_obj["f_rel_err"],
+        "max_g_err_over_scale": packet_obj["g_err_over_scale"],
+        "tolerances": {"f_rtol": PACKET_F_RTOL, "g_rtol_of_scale": PACKET_G_RTOL},
+        "ms": packet_obj["by_shape"]["packet"]["wrapper_ms"],
+        "device_ms": packet_obj["by_shape"]["packet"]["vg"]["device_us"] / 1e3,
+        "bound_ms": packet_obj["by_shape"]["packet"]["bound_us"] / 1e3, "bound_by": "bytes",
+        "library_ms": None, "by_shape": packet_obj["by_shape"]})
     rows.append({
         "name": "loop_pred", "route": "cuda", "source": "cmax_slam_tpu_torch/csrc/loop.cu",
         "replaces": "cmax_slam_tpu/ops/optim.py:573 (lax.while_loop's cond; the lax.cond of "

@@ -418,8 +418,15 @@ class Frontend:
         keeps both)."""
         room = [c for c in self._entry.programs if c >= lanes]
         cap = min(room) if room else max(16, lanes)
-        return self._entry.program(cap, lambda: _PacketSolver(
-            self.cfg, self.cam, self._entry.state, self.packet_size, self.device, cap))
+        return self._entry.program(cap, lambda: self._count_routes(_PacketSolver(
+            self.cfg, self.cam, self._entry.state, self.packet_size, self.device, cap)))
+
+    def _count_routes(self, solver: "_PacketSolver") -> "_PacketSolver":
+        """Counts a new program's objectives by route
+        (``frontend.objective_fused``, ``frontend.objective_chain``)."""
+        for route in solver.routes:
+            self.metrics.count(f"frontend.objective_{route}")
+        return solver
 
     # ------------------------------------------------------------------
     def render_iwe_pair(self, beg: int, end: int, omega) -> Optional[np.ndarray]:
@@ -496,9 +503,13 @@ class _PacketSolver:
         self.go, self.live = device_loop.gate(dev), device_loop.gate(dev)
         lanes = torch.arange(S, device=dev)
 
+        self.routes = []  # each objective's route, "fused" (K6) or "chain"
+
         def objective(sigma):
+            route = warp_local.objective_route(self.packet, cam, sigma, cfg.contrast_measure)
+            self.routes.append(route)
             return warp_local.make_local_objective(self.packet, cam, sigma,
-                                                   cfg.contrast_measure)
+                                                   cfg.contrast_measure, route=route)
 
         kw = dict(initial_step=o.initial_step, line_search_tol=o.line_search_tol,
                   grad_tol=o.grad_tol, fun_tol=o.fun_tol,

@@ -63,12 +63,15 @@ another.
 ``LAUNCHES`` counts executed kernel launches, so a run can show that its
 votes went through the kernels: ``"fwd"`` is every K1 launch and
 ``"fwd_P"``, ``"fwd_G"`` split it by variant; ``"bwd"``, ``"bwd_S"`` and
-``"bwd_G"`` do the same for K2, ``"jvp"`` and ``"jvp_S"`` for K3. A wrapper
-counts a launch where it makes it, and nowhere else. A launch made while its
-stream is captured into a CUDA graph (ops/device_loop.py) runs only when the
-graph does, perhaps many times: the wrapper hands it to the recorder that
-``recording`` installs, and the graph adds it to the counts once for every
-time the device ran it. ``GRAPH_LAUNCHES`` is the part of them that ran
+``"bwd_G"`` do the same for K2, ``"jvp"`` and ``"jvp_S"`` for K3, and
+``"packet"`` with ``"packet_vg"``, ``"packet_f"`` for K6 (ops/cuda_packet.py);
+``"packet_chain"`` and its forms count the evaluations of a packet objective
+on the card that take the chain instead (ops/warp_local.py), one per
+evaluation. A wrapper counts a launch where it makes it, and nowhere else.
+A launch made while its stream is captured into a CUDA graph
+(ops/device_loop.py) runs only when the graph does, perhaps many times: the
+wrapper hands it to the recorder that ``recording`` installs, and the graph
+adds it to the counts once for every time the device ran it. ``GRAPH_LAUNCHES`` is the part of them that ran
 inside graphs. ``SHAPE_LAUNCHES``, when set to a dict, also counts launches
 by (kernel, variant, images, events, height, width). The build, the counts
 and the per-device set-up are guarded by a lock: the multi-device modes
@@ -91,7 +94,12 @@ LAUNCHES = {"fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0,
             "jvp": 0, "jvp_S": 0,
             # K4 and K5 (ops/cuda_pano_vote.py), by spline order
             "pano_fwd": 0, "pano_fwd_o2": 0, "pano_fwd_o4": 0,
-            "pano_bwd": 0, "pano_bwd_o2": 0, "pano_bwd_o4": 0}
+            "pano_bwd": 0, "pano_bwd_o2": 0, "pano_bwd_o4": 0,
+            # K6 (ops/cuda_packet.py), by form, and beside it the chain's
+            # evaluations of a packet objective on the card (not launches:
+            # each is the chain's launches), by form
+            "packet": 0, "packet_vg": 0, "packet_f": 0,
+            "packet_chain": 0, "packet_chain_vg": 0, "packet_chain_f": 0}
 GRAPH_LAUNCHES = dict.fromkeys(LAUNCHES, 0)  # the part of LAUNCHES run inside CUDA graphs
 SHAPE_LAUNCHES: dict | None = None
 _recorder: list | None = None  # launches captured into the graph being built (one at a

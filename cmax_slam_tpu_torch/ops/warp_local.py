@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import cuda_iwe, cuda_packet
 from .blur import gaussian_blur
 from .contrast import contrast
 from .scatter import vote
@@ -134,14 +135,49 @@ def value_and_grad(f):
     return vg
 
 
+def objective_route(packet: EventPacket, cam: CameraParams, blur_sigma: float,
+                    measure: int) -> str:
+    """The route of a packet objective, by shape alone: "fused" (K6,
+    ops/cuda_packet.py: the whole value and gradient in one launch) where
+    its planner takes one packet's events on the card, else "chain"
+    (warp_events, the vote, the blur, the measure, autograd). A CPU packet,
+    or one with a lane axis, always takes the chain."""
+    if packet.dts.device.type != "cuda" or packet.dts.dim() != 1:
+        return "chain"
+    smem = cuda_iwe.device_attrs(packet.dts.device)[1]
+    return cuda_packet.plan_packet_vg(1, packet.dts.shape[0], cam.height, cam.width,
+                                      blur_sigma, measure, smem).route
+
+
 def make_local_objective(packet: EventPacket, cam: CameraParams, blur_sigma: float,
-                         measure: int):
+                         measure: int, *, route: str | None = None):
     """Negative-contrast objective f(omega) and its value_and_grad (the GSL
     callback triple {f, df, fdf}, src/frontend/local_optim_contrast_gsl.cpp:
-    20-70, with df by autograd). f takes (3,) or a (M, 3) batch; on a lane
-    packet, (P, 3) or (P, M, 3)."""
+    20-70). f takes (3,) or a (M, 3) batch; on a lane packet, (P, 3) or
+    (P, M, 3). ``route`` is the objective's route as objective_route gives
+    it (None: ask it; chip_smoke forces either): on the chain df is by
+    autograd, and on the card each evaluation is counted in
+    cuda_iwe.LAUNCHES["packet_chain"]; K6 (ops/cuda_packet.py) counts its
+    own launches, and its f is forward only."""
+    route = route or objective_route(packet, cam, blur_sigma, measure)
+    if route == "fused":
+        return cuda_packet.make_fused_objective(packet, cam, blur_sigma, measure)
+    if route != "chain":
+        raise ValueError(f"unknown objective route {route!r}")
 
     def f(omega):
         return -contrast(local_iwe(omega, packet, cam, blur_sigma), measure)
 
-    return f, value_and_grad(f)
+    vg = value_and_grad(f)
+    if packet.dts.device.type != "cuda":
+        return f, vg
+    shape = (packet.dts.shape[-1], cam.height, cam.width)
+
+    def counted(fn, form):
+        def evaluate(omega):
+            cuda_iwe._launched("packet_chain", form, (omega[..., 0].numel(), *shape))
+            return fn(omega)
+
+        return evaluate
+
+    return counted(f, "f"), counted(vg, "vg")

@@ -43,11 +43,12 @@ _PROBE = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     from cmax_slam_tpu_torch.io import native
-    from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_pano_vote
+    from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_packet, cuda_pano_vote
     build_dir = cuda_iwe.BUILD_DIR
     built = sorted(p.name for p in build_dir.glob("*.so")) if build_dir.exists() else []
     print(json.dumps({"preloaded": preloaded, "names": names, "started": started,
-                      "lib": bool(cuda_iwe._loaded or cuda_pano_vote._loaded or native._loaded),
+                      "lib": bool(cuda_iwe._loaded or cuda_pano_vote._loaded
+                                  or cuda_packet._loaded or native._loaded),
                       "launches": cuda_iwe.LAUNCHES, "built": built}))
 """)
 
@@ -71,7 +72,7 @@ def test_importing_every_module_needs_no_jax_and_builds_nothing(tmp_path):
     expected = {"cmax_slam_tpu_torch." + m for m in (
         "backend", "calib", "config", "frontend", "lie", "spline", "system",
         "ops.scatter", "ops.cuda_iwe", "ops.blur", "ops.contrast", "ops.warp_local",
-        "ops.optim", "ops.warp_pano", "ops.cuda_pano_vote", "ops.device_loop", "ops.program_pool", "io.events", "io.native", "io.synthetic", "io.devring",
+        "ops.optim", "ops.warp_pano", "ops.cuda_pano_vote", "ops.cuda_packet", "ops.device_loop", "ops.program_pool", "io.events", "io.native", "io.synthetic", "io.devring",
         "utils.metrics", "utils.evaluate", "utils.device", "cli", "io.streams", "io.rosbag",
         "utils.image", "parallel", "parallel.sharding", "parallel.batched",
         "parallel.window_shard", "parallel.replay")}
@@ -80,7 +81,8 @@ def test_importing_every_module_needs_no_jax_and_builds_nothing(tmp_path):
     assert not res["lib"] and res["launches"] == {
         "fwd": 0, "fwd_P": 0, "fwd_G": 0, "bwd": 0, "bwd_S": 0, "bwd_G": 0, "jvp": 0,
         "jvp_S": 0, "pano_fwd": 0, "pano_fwd_o2": 0, "pano_fwd_o4": 0, "pano_bwd": 0,
-        "pano_bwd_o2": 0, "pano_bwd_o4": 0}
+        "pano_bwd_o2": 0, "pano_bwd_o4": 0, "packet": 0, "packet_vg": 0, "packet_f": 0,
+        "packet_chain": 0, "packet_chain_vg": 0, "packet_chain_f": 0}
     assert res["built"] == before
 
 
