@@ -311,6 +311,11 @@ class Backend:
         with TRACE.span("backend.finish", window=p["index"]):
             with self.metrics.timer("backend.fetch"):
                 initial, final, iters, rejected, correction = self._finish_solve(p)
+            # The window's line searches, the first solve's and the
+            # restarts', from its packed result (no read of their own).
+            first = p["first_iters"]
+            self.metrics.count("backend.cg_iters", first)
+            self.metrics.count("backend.restart_cg_iters", iters - first)
             return self._finish_window(p, initial, final, iters, rejected, correction)
 
     # ------------------------------------------------------------------
@@ -728,8 +733,9 @@ class Backend:
 
     @staticmethod
     def _unpack(packed: np.ndarray, K: int):
-        """(knots_new (K, 4), stats [f0, fun, iters, alpha, bbox]) of a
-        window's packed result."""
+        """(knots_new (K, 4), stats [f0, fun, iters, alpha, bbox, the first
+        solve's iters]) of a window's packed result; iters counts every
+        solve's line searches, restarts included."""
         return packed[:4 * K].reshape(K, 4), packed[4 * K:].tolist()
 
     @torch.no_grad()
@@ -806,6 +812,7 @@ class Backend:
                     knots_new, stats = self._unpack(self._fetch([], (handle,))[0], p["K"])
             else:
                 self.metrics.count("backend.crop_windows", 1)
+        p["first_iters"] = int(stats[8])
         idx, n_real = p["idx_cp_traj_beg"], p["n_real"]
         q1 = knots_new.astype(np.float64)[:n_real]
         q0 = p["knots_sub"][:n_real].astype(np.float64)
@@ -1042,10 +1049,11 @@ class _WindowSolver:
             secant_refine_evals=o.secant_refine_evals, ladder=o.ladder,
             cg_variant=o.cg_variant, trust_radius=cfg.max_ba_correction_rad)
         self.x0 = buf(1, 3 * K)
-        self.iters, self.f0 = buf(1), buf(1)
+        self.iters, self.f0, self.first_iters = buf(1), buf(1), buf(1)
 
         def first():
             self.f0.copy_(cg.s.f0)
+            self.first_iters.copy_(cg.s.it)
             self.iters.zero_()
 
         def restart():
@@ -1075,7 +1083,7 @@ class _WindowSolver:
             self.ig_out.copy_(ig_new)
             self.upd_out.copy_(upd_new)
             stats = torch.cat([self.f0, cg.s.f, (self.iters + cg.s.it).float(),
-                               win.alpha.reshape(1), bbox])
+                               win.alpha.reshape(1), bbox, self.first_iters])
             self.out.copy_(torch.cat([knots_new.reshape(-1), stats]))
 
         def build(b):
@@ -1083,13 +1091,14 @@ class _WindowSolver:
             b.seg(first)
             for _ in range(restarts):
                 # Bounded re-seeded restarts: a fresh full-scale bracket from
-                # the optimum (the JAX package's _build_crop_solver).
+                # the optimum (the JAX package's _build_crop_solver), its
+                # loop nodes named apart from the first solve's.
                 b.seg(restart)
-                cg.solve(b, cg.s.x)
+                cg.solve(b, cg.s.x, name="restart/cg")
             b.seg(epilogue)
 
         name = "backend.crop" if crop_hw is not None else "backend.full"
-        self.program = device_loop.Program(build, 4 * K + 8, dev, name=name)
+        self.program = device_loop.Program(build, 4 * K + 9, dev, name=name)
         self.out = self.program.out
 
     def solve(self, win: PanoWindow, fov_rel, consts, ig, upd) -> device_loop.Result:

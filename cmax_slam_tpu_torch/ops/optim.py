@@ -441,9 +441,12 @@ class LaneCG:
                  name="secant")
         b.seg(self._end)
 
-    def solve(self, b, x0: torch.Tensor) -> None:
+    def solve(self, b, x0: torch.Tensor, name: str | None = None) -> None:
+        """start(x0), then the CG loop; ``name`` (default the solver's)
+        names the loop's node, so that a second solve in one program (a
+        restart) is told apart in the trace."""
         b.seg(lambda: self.start(x0))
-        b.repeat(self.keep, lambda: self.iteration(b), name=self.name)
+        b.repeat(self.keep, lambda: self.iteration(b), name=name or self.name)
 
     def rounds(self, b, num_iters: torch.Tensor) -> None:
         """cg_run_rounds on the state in the buffers, as program steps: up to

@@ -434,7 +434,9 @@ def busy_time(rec: dict, lo: float | None = None, hi: float | None = None) -> fl
 
 def loop_split(rec: dict) -> dict:
     """Device seconds of each program split into its outermost loop nodes
-    (``<program>/<node>``) and the rest (``<program>/rest``): over the
+    (``<program>/<node>``; a node is outermost when no other node's path is
+    a prefix of its own, so a name holding "/", such as a restarted solve's
+    ``restart/cg``, counts apart) and the rest (``<program>/rest``): over the
     launches that timed their loops, the parts sum to their launch
     intervals."""
     out: dict = defaultdict(float)
@@ -443,8 +445,9 @@ def loop_split(rec: dict) -> dict:
             continue
         whole = r["device"][1] - r["device"][0]
         outer = 0.0
-        for path, s in r["loops"].items():
-            if "/" not in path:
+        paths = r["loops"]
+        for path, s in paths.items():
+            if not any(path.startswith(p + "/") for p in paths):
                 out[f"{r['program']}/{path}"] += s
                 outer += s
         out[f"{r['program']}/rest"] += whole - outer

@@ -84,6 +84,19 @@ def test_cubic_windows_and_trajectory_match_jax(runs):
     assert gap < CUBIC_GAP_DEG, gap
 
 
+def test_cubic_counters_split_the_first_solve_from_the_restart(runs):
+    """Each completed window counts its first solve's line searches in
+    ``backend.cg_iters`` and its restarted solve's in
+    ``backend.restart_cg_iters``, read from the window's packed result: over
+    the run they sum to the windows' ``WindowResult.iters``, and the
+    restart (one a window for the cubic) takes some."""
+    t = runs["t"]
+    results = t.window_results()
+    c = t.metrics.counters
+    assert c["backend.cg_iters"] + c["backend.restart_cg_iters"] == sum(r.iters for r in results)
+    assert c["backend.cg_iters"] > 0 and c["backend.restart_cg_iters"] > 0
+
+
 @pytest.mark.slow
 @pytest.mark.xfail(strict=True, reason=(
     "known miss (ROADMAP Queue 3): float32 rounding flips the first window's secant "

@@ -225,6 +225,19 @@ def test_readers_on_a_hand_built_tree():
             "backend.crop loops"} <= names
 
 
+def test_loop_split_takes_a_restarted_solve_apart():
+    """A window program with a restarted solve: its loop nodes (``restart/cg``
+    and its children) are timed apart from the first solve's ``cg``."""
+    rec = _tree()
+    rec["launches"] = [{"program": "backend.crop", "parent": 9, "device": [7.8, 11.0],
+                        "loops": {"cg": 2.0, "cg/bracket": 1.2, "cg/secant": 0.5,
+                                  "restart/cg": 0.7, "restart/cg/bracket": 0.4,
+                                  "restart/cg/secant": 0.2}}]
+    assert metrics.loop_split(rec) == {"backend.crop/cg": pytest.approx(2.0),
+                                       "backend.crop/restart/cg": pytest.approx(0.7),
+                                       "backend.crop/rest": pytest.approx(3.2 - 2.7)}
+
+
 def test_a_recording_trace_nests_spans_by_thread_and_inherits_attributes():
     import threading
 
