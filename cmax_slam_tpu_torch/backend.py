@@ -22,12 +22,14 @@ host-side state machine over the shared EventStore. Window protocol
 
 The maps (``IG``, ``update_times``) stay resident on the back-end's device.
 Each window's solve is one device program (ops/device_loop.py, the JAX
-package's _build_crop_solver and _build_window_solver): the per-window
-constants are computed on the device and copied into the program's static
-buffers, then one graph launch runs the CG solve with its bounded restarts,
-the old/new split, the optimum's bounding box and the map epilogue into
-one packed array (knots, f0, fun, iters, alpha, bbox). On the CPU the same
-program runs eagerly.
+package's _build_crop_solver and _build_window_solver): the host uploads
+the window's raw inputs (``WindowInputs``: LUT rows, flags, batch times,
+knots, the crop) in one copy, and one graph launch prepares the window
+(the bearings' LUT gather, the spline basis, alpha from the zero-increment
+image and the crop's constants), runs the CG solve with its bounded
+restarts, the old/new split, the optimum's bounding box and the map
+epilogue into one packed array (knots, f0, fun, iters, alpha, bbox). On
+the CPU the same program runs eagerly.
 
 A window completes one step late, as in the JAX package: ``step()``
 dispatches the window's program and returns, and the next ``step()`` (or
@@ -50,7 +52,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,8 +65,32 @@ from .ops import device_loop, optim, program_pool, warp_pano
 from .ops.blur import opencv_ksize
 from .ops.scatter import bilinear_accumulate_two
 from .ops.warp_pano import PanoWindow
-from .utils.device import resolve_device, to_device
+from .utils.device import PackedUpload, resolve_device, to_device
 from .utils.metrics import TRACE, Metrics, logger
+
+
+class WindowInputs(NamedTuple):
+    """A window's raw inputs on the host, as its program reads them after
+    one packed upload (utils.device.PackedUpload).
+
+    idx: (N,) int32 LUT rows of the events (ys * width + xs; 0 where not
+         valid), gathered into the bearings inside the program.
+    valid: (N,) bool, the events that vote (PanoWindow.weights).
+    is_old: (N,) bool (PanoWindow.is_old).
+    batch_rel: (B,) float32 batch times on the window's spline clock.
+    knots: (K, 4) float32 starting knots; free: (K,) float32 free mask.
+    fov_rel: (n_fov,) float32 times of the update-count grid.
+    crop: (6,) int64 [y0, x0, vy0, vy1, vx0, vx1], or None: the full panorama.
+    """
+
+    idx: np.ndarray
+    valid: np.ndarray
+    is_old: np.ndarray
+    batch_rel: np.ndarray
+    knots: np.ndarray
+    free: np.ndarray
+    fov_rel: np.ndarray
+    crop: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -690,45 +716,38 @@ class Backend:
         return not ok
 
     # ------------------------------------------------------------------
-    def _window(self, arrays, knots, free) -> PanoWindow:
-        """Device-side window assembly: LUT bearing gather (component-major).
-        The uploads are staged (utils.device.to_device): the window in flight
-        and the front-end's launches queued behind it are not waited for."""
-        dev = self.device
-        valid = to_device(arrays["valid"], dev)
-        idx = to_device(
-            np.where(arrays["valid"], arrays["ys"] * self.cam_width + arrays["xs"], 0), dev)
-        return PanoWindow(
-            bearings=self.lut_dev[idx].T.contiguous(),
-            batch_times=to_device(arrays["batch_rel"], dev),
-            weights=valid.to(torch.float32),
-            is_old=to_device(arrays["is_old"], dev),
-            knots=to_device(knots, dev, torch.float32),
-            free_mask=to_device(free, dev),
-            t0=0.0,
-            dt_knots=float(np.float32(self.cfg.trajectory.dt_knots)),
-            ig_prime=self.IG,
-            alpha=torch.zeros((), dtype=torch.float32, device=dev),
-        )
+    def _inputs(self, arrays, knots, free, fov_rel) -> WindowInputs:
+        """The window's raw inputs for its program (the bearings are
+        gathered from the LUT there)."""
+        valid = arrays["valid"]
+        idx = np.where(valid, arrays["ys"] * self.cam_width + arrays["xs"], 0)
+        return WindowInputs(idx=idx.astype(np.int32), valid=valid, is_old=arrays["is_old"],
+                            batch_rel=arrays["batch_rel"], knots=knots, free=free,
+                            fov_rel=fov_rel)
 
-    def _solver(self, win: PanoWindow, fov_rel, crop_hw) -> "_WindowSolver":
+    def _solver(self, inputs: WindowInputs, crop_hw) -> "_WindowSolver":
         """The leased entry's program for this window's shapes: events,
         batches, knots, crop (None: the full panorama), FOV-grid length and
         the prior weight of refine sweeps."""
-        key = (win.weights.shape[0], win.batch_times.shape[0], win.knots.shape[0], crop_hw,
-               len(fov_rel), self._prior_lam)
+        key = (len(inputs.idx), len(inputs.batch_rel), len(inputs.knots), crop_hw,
+               len(inputs.fov_rel), self._prior_lam)
         return self._entry.program(key, lambda: _WindowSolver(
             self.cfg, self.pano, self.order, self._ba_restarts, self._prior_lam,
-            self._entry.state["lut"], win, len(fov_rel), crop_hw))
+            self._entry.state["lut"], inputs, crop_hw))
 
-    def _run_solver(self, win: PanoWindow, fov_rel, crop_hw=None, consts=None):
-        """Load a window into its program and launch it. Returns (the
-        launch's handle, the solver, whose ig_out/upd_out hold the new maps
-        once the launch has completed)."""
+    def _launch(self, inputs: WindowInputs, crop_hw=None):
+        """Load a window's inputs into the program of its shapes (crop
+        ``crop_hw``, None: the full panorama) and launch it; the program
+        prepares the window itself, counted by kind as
+        ``backend.prep_in_program_crop`` / ``_full``. Returns (the launch's
+        handle, the solver, whose ig_out/upd_out hold the new maps once the
+        launch has completed)."""
         with TRACE.span("backend.launch"):
-            solver = self._solver(win, fov_rel, crop_hw)
+            solver = self._solver(inputs, crop_hw)
             with torch.no_grad():
-                handle = solver.solve(win, fov_rel, consts, self.IG, self.update_times)
+                handle = solver.solve(inputs, self.IG, self.update_times)
+        kind = "full" if crop_hw is None else "crop"
+        self.metrics.count(f"backend.prep_in_program_{kind}")
         return handle, solver
 
     @staticmethod
@@ -737,31 +756,6 @@ class Backend:
         solve's iters]) of a window's packed result; iters counts every
         solve's line searches, restarts included."""
         return packed[:4 * K].reshape(K, 4), packed[4 * K:].tolist()
-
-    @torch.no_grad()
-    def _solve_full(self, win: PanoWindow, fov_rel):
-        """Full-panorama window solve, launched. Returns (handle, solver)."""
-        K = win.knots.shape[0]
-        with TRACE.span("backend.full_alpha"):
-            zeros = torch.zeros((K, 3), device=self.device)
-            il0, _ = warp_pano.pano_objective_image(zeros, win, self.pano, self.order,
-                                                    self.cfg.warp.blur_sigma)
-            alpha = warp_pano.compute_alpha(il0, win.ig_prime)
-        return self._run_solver(win, fov_rel, consts=dict(alpha=alpha))
-
-    @torch.no_grad()
-    def _solve_crop(self, win: PanoWindow, fov_rel, plan):
-        """FOV-crop window solve, launched. Returns (handle, solver)."""
-        Hc, Wc, ints, _ = plan
-        cfg = self.cfg
-        with TRACE.span("backend.crop_constants"):
-            ints_t = to_device(ints, self.device)
-            win, _, _, a_crop, mask, out_s1, out_s2 = warp_pano.crop_window_constants(
-                win, self.pano, self.order, cfg.warp.blur_sigma, cfg.contrast_measure, (Hc, Wc),
-                ints_t)
-        consts = dict(alpha=win.alpha, crop=ints_t, a_crop=a_crop, mask=mask, out_s1=out_s1,
-                      out_s2=out_s2)
-        return self._run_solver(win, fov_rel, (Hc, Wc), consts)
 
     def _dispatch_window_solve(self, xs, ys, ts, idx_cp_traj_beg, num_fixed):
         """Marshal the window and launch its solve (crop first where
@@ -778,14 +772,13 @@ class Backend:
         free[num_fixed:n_real] = 1.0
         fov_rel = self._fov_times_rel(self.traj.knot_time(idx_cp_traj_beg), n_real)
         with TRACE.span("backend.window"):
-            win = self._window(arrays, sub.astype(np.float32), free)
+            inputs = self._inputs(arrays, sub.astype(np.float32), free, fov_rel)
         with TRACE.span("backend.plan_crop"):
             plan = self._plan_crop(arrays, sub) if self.cfg.crop_solver else None
         if plan is not None:
-            handle, solver = self._solve_crop(win, fov_rel, plan)
-        else:
-            handle, solver = self._solve_full(win, fov_rel)
-        return dict(handle=handle, solver=solver, plan=plan, win=win, fov_rel=fov_rel, K=K,
+            inputs = inputs._replace(crop=plan[2])
+        handle, solver = self._launch(inputs, None if plan is None else plan[:2])
+        return dict(handle=handle, solver=solver, plan=plan, inputs=inputs, K=K,
                     n_real=n_real, idx_cp_traj_beg=idx_cp_traj_beg, index=self.count_window,
                     knots_sub=sub)
 
@@ -808,7 +801,7 @@ class Backend:
                             "re-solving on the full panorama", p["index"], Hc, Wc)
                 self.metrics.count("backend.crop_escapes", 1)
                 with TRACE.span("backend.escape"):
-                    handle, solver = self._solve_full(p["win"], p["fov_rel"])
+                    handle, solver = self._launch(p["inputs"]._replace(crop=None))
                     knots_new, stats = self._unpack(self._fetch([], (handle,))[0], p["K"])
             else:
                 self.metrics.count("backend.crop_windows", 1)
@@ -985,20 +978,24 @@ def map_epilogue(ig, upd, il_old, knots_new, fov_rel, win: PanoWindow, order: in
 class _WindowSolver:
     """One window's solve as one device program: the counterpart of the JAX
     package's _build_crop_solver (``crop_hw`` set) and _build_window_solver
-    (the full panorama). Static buffers hold the window's events, knots,
-    constants and the maps it starts from; the program runs the CG solve
-    from zero increments inside the max_ba_correction_rad trust radius, its
-    bounded restarts from the optimum (config.ba_solve_restarts), then the
-    old/new split, the optimum's bounding box (crop) and the map epilogue,
-    and packs knots and stats into ``out``; the new maps stay in
-    ``ig_out``/``upd_out``. It reads nothing outside its buffers and the
-    pool entry's LUT, so any back-end of its pool key may launch it."""
+    (the full panorama). Static buffers hold the window's packed raw inputs
+    (``staged``), its events, knots, constants and the maps it starts from.
+    The program first prepares the window from the inputs (``prepare``:
+    the bearings' LUT gather, the spline basis, alpha from the
+    zero-increment image and, on a crop, the crop's constants), then runs
+    the CG solve from zero increments inside the max_ba_correction_rad
+    trust radius, its bounded restarts from the optimum
+    (config.ba_solve_restarts), then the old/new split, the optimum's
+    bounding box (crop) and the map epilogue, and packs knots and stats into
+    ``out``; the new maps stay in ``ig_out``/``upd_out``. It reads nothing
+    outside its buffers and the pool entry's LUT, so any back-end of its
+    pool key may launch it. ``inputs`` (a WindowInputs) gives the shapes."""
 
     def __init__(self, cfg: BackendConfig, pano: EquirectCamera, order: int, restarts: int,
-                 lam: float, lut, win: PanoWindow, n_fov: int, crop_hw):
+                 lam: float, lut, inputs: WindowInputs, crop_hw):
         o, dev = cfg.optim, lut.device
-        N, K = win.weights.shape[0], win.knots.shape[0]
-        B = win.batch_times.shape[0]
+        N, K = len(inputs.idx), len(inputs.knots)
+        B, n_fov = len(inputs.batch_rel), len(inputs.fov_rel)
         H, W = pano.height, pano.width
         sigma, measure = cfg.warp.blur_sigma, cfg.contrast_measure
         self.order = order
@@ -1006,14 +1003,23 @@ class _WindowSolver:
         def buf(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
+        fields = dict(idx=((N,), torch.int32), valid=((N,), torch.bool),
+                      is_old=((N,), torch.bool), batch_rel=((B,), torch.float32),
+                      knots=((K, 4), torch.float32), free=((K,), torch.float32),
+                      fov_rel=((n_fov,), torch.float32))
+        if crop_hw is not None:
+            fields["crop"] = ((6,), torch.int64)
+        self.staged = PackedUpload(fields, dev)
+        self.lut_t = lut.T.contiguous()  # (3, rows): the gather writes (3, N) at once
         self.ig_in, self.upd_in = buf(H, W), buf(H, W, dtype=torch.int32)
         self.win = PanoWindow(bearings=buf(3, N), batch_times=buf(B), weights=buf(N),
                               is_old=buf(N, dtype=torch.bool), knots=buf(K, 4),
-                              free_mask=buf(K), t0=win.t0, dt_knots=win.dt_knots,
+                              free_mask=buf(K), t0=0.0,
+                              dt_knots=float(np.float32(cfg.trajectory.dt_knots)),
                               ig_prime=self.ig_in, alpha=buf())
         self.fov = buf(n_fov)
         # The spline basis of the window's batches (spline.segment_basis),
-        # computed per window at load: the objective reads it.
+        # computed per window by the prologue: the objective reads it.
         self.basis = (buf(B, dtype=torch.int32), buf(B, order))
         self.ig_out, self.upd_out = torch.zeros_like(self.ig_in), torch.zeros_like(self.upd_in)
         self.crop = None
@@ -1031,6 +1037,34 @@ class _WindowSolver:
         else:
             f, vg = warp_pano.make_pano_objective(self.win, pano, order, sigma, measure,
                                                   basis=self.basis)
+
+        def prepare():
+            """The window from its packed inputs, and its constants: those
+            warp_pano.crop_window_constants computes on a crop, alpha of the
+            zero-increment image on the full panorama."""
+            v, win = self.staged.views, self.win
+            torch.index_select(self.lut_t, 1, v["idx"], out=win.bearings)
+            win.weights.copy_(v["valid"])
+            win.is_old.copy_(v["is_old"])
+            win.batch_times.copy_(v["batch_rel"])
+            win.knots.copy_(v["knots"])
+            win.free_mask.copy_(v["free"])
+            self.fov.copy_(v["fov_rel"])
+            for dst, value in zip(self.basis, spline.segment_basis(
+                    win.batch_times, win.t0, win.dt_knots, K, order)):
+                dst.copy_(value)
+            if self.crop is None:
+                win.alpha.copy_(warp_pano.zero_increment_alpha(win, pano, order, (H, W),
+                                                               basis=self.basis))
+                return
+            self.crop.copy_(v["crop"])
+            self.origin.copy_(self.crop[:2].flip(0))  # (x0, y0)
+            consts = warp_pano.crop_window_constants(win, pano, order, sigma, measure, crop_hw,
+                                                     self.crop, basis=self.basis)
+            for dst, src in zip((win.alpha, self.a_crop, self.mask, self.out_s1, self.out_s2),
+                                (consts[0].alpha, *consts[3:])):
+                dst.copy_(src)
+
         if lam:  # quadratic prior toward the incoming knots (refine sweeps)
             f0, vg0 = f, vg
 
@@ -1087,6 +1121,7 @@ class _WindowSolver:
             self.out.copy_(torch.cat([knots_new.reshape(-1), stats]))
 
         def build(b):
+            b.seg(prepare)
             cg.solve(b, self.x0)
             b.seg(first)
             for _ in range(restarts):
@@ -1101,27 +1136,21 @@ class _WindowSolver:
         self.program = device_loop.Program(build, 4 * K + 9, dev, name=name)
         self.out = self.program.out
 
-    def solve(self, win: PanoWindow, fov_rel, consts, ig, upd) -> device_loop.Result:
+    def solve(self, inputs: WindowInputs, ig, upd) -> device_loop.Result:
         """Load the window (``load``) and launch; returns the launch's
         handle."""
         with TRACE.span("backend.load"):
-            self.load(win, fov_rel, consts, ig, upd)
+            self.load(inputs, ig, upd)
         return self.program.run()
 
-    def load(self, win: PanoWindow, fov_rel, consts, ig, upd) -> None:
-        """Copy the window, its spline basis, its constants and the maps
-        (IG, update_times) into the buffers."""
-        for name in ("bearings", "batch_times", "weights", "is_old", "knots", "free_mask"):
-            getattr(self.win, name).copy_(getattr(win, name))
-        for buf, value in zip(self.basis, spline.segment_basis(
-                self.win.batch_times, self.win.t0, self.win.dt_knots, self.win.knots.shape[0],
-                self.order)):
-            buf.copy_(value)
-        self.ig_in.copy_(ig)
-        self.upd_in.copy_(upd)
-        self.win.alpha.copy_(consts["alpha"])
-        self.fov.copy_(to_device(fov_rel, self.fov.device))
-        if self.crop is not None:
-            for name in ("crop", "a_crop", "mask", "out_s1", "out_s2"):
-                getattr(self, name).copy_(consts[name])
-            self.origin.copy_(consts["crop"][:2].flip(0))  # (x0, y0)
+    def load(self, inputs: WindowInputs, ig, upd) -> None:
+        """Write the window's inputs into the packed upload and queue its one
+        copy, then copy the maps (IG, update_times) into the buffers."""
+        crop = {} if self.crop is None else {"crop": inputs.crop}
+        self.staged.write(idx=inputs.idx, valid=inputs.valid, is_old=inputs.is_old,
+                          batch_rel=inputs.batch_rel, knots=inputs.knots, free=inputs.free,
+                          fov_rel=inputs.fov_rel, **crop)
+        with TRACE.span("backend.upload", device=True):
+            self.staged.upload()
+            self.ig_in.copy_(ig)
+            self.upd_in.copy_(upd)

@@ -268,23 +268,21 @@ def make_crop_objective(win: PanoWindow, pano: EquirectCamera, order: int,
 
 
 def crop_window_constants(win: PanoWindow, pano: EquirectCamera, order: int,
-                          blur_sigma: float, measure: int, crop_hw: tuple, crop_ints):
+                          blur_sigma: float, measure: int, crop_hw: tuple, crop_ints, *,
+                          basis=None):
     """Per-window constants of the crop objective: alpha from the
     zero-increment IL (its full-image density equals its crop density), the
     a_crop slice, the interior mask and the outside stats. ``crop_ints`` =
     [y0, x0, vy0, vy1, vx0, vx1], host ints or a device tensor: the crop is
     placed on the device, as the JAX package reads it there, and nothing is
-    read on the host. Returns (win_with_alpha, x0f, y0f, a_crop, mask,
-    out_s1, out_s2); x0f and y0f are 0-dim device tensors."""
+    read on the host. ``basis`` as make_pano_objective's. Returns
+    (win_with_alpha, x0f, y0f, a_crop, mask, out_s1, out_s2); x0f and y0f
+    are 0-dim device tensors."""
     Hc, Wc = crop_hw
     dev = win.knots.device
     ints = torch.as_tensor(crop_ints, device=dev).to(torch.int64)
     x0f, y0f = ints[1].to(torch.float32), ints[0].to(torch.float32)
-    K = win.knots.shape[0]
-    zeros = torch.zeros((K, 3), dtype=torch.float32, device=dev)
-    px0, py0 = warp_to_pano(zeros, win, pano, order)
-    il0 = vote(px0 - x0f, py0 - y0f, win.weights, Hc, Wc)
-    alpha = compute_alpha(il0, win.ig_prime)
+    alpha = zero_increment_alpha(win, pano, order, crop_hw, torch.stack([x0f, y0f]), basis)
 
     a_full = alpha * gaussian_blur(win.ig_prime, blur_sigma)
     rows = ints[0] + torch.arange(Hc, device=dev)
@@ -295,6 +293,17 @@ def crop_window_constants(win: PanoWindow, pano: EquirectCamera, order: int,
     s1_v, s2_v = contrast_mod.region_stats(a_crop, mask, measure)
     return (win._replace(alpha=alpha), x0f, y0f, a_crop, mask,
             s1_full - s1_v, s2_full - s2_v)
+
+
+def zero_increment_alpha(win: PanoWindow, pano: EquirectCamera, order: int, hw: tuple,
+                         origin=None, basis=None) -> torch.Tensor:
+    """compute_alpha of the window's image at zero increments against its
+    map term IG', the image on ``hw`` at ``origin`` as ``pano_vote`` places
+    it: the function every evaluation of the window's objective computes
+    (K4 on the card)."""
+    zeros = torch.zeros((win.knots.shape[0], 3), dtype=torch.float32, device=win.knots.device)
+    return compute_alpha(pano_vote(zeros, win, pano, order, tuple(hw), origin, basis),
+                         win.ig_prime)
 
 
 def event_density(image: torch.Tensor, lam0: float = 1.0) -> torch.Tensor:

@@ -3,6 +3,9 @@ the card unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 
@@ -58,3 +61,50 @@ def upload(staged: torch.Tensor, device) -> torch.Tensor:
     ``device`` (a ``non_blocking`` copy for a CUDA device)."""
     device = torch.device(device)
     return staged if device.type != "cuda" else staged.to(device, non_blocking=True)
+
+
+class PackedUpload:
+    """Host arrays of fixed shapes and dtypes that reach ``device`` in one
+    copy: a host buffer and its device twin, each split into typed views
+    (``views``: the device's, which a program reads) at 8-byte aligned
+    offsets. ``write(**arrays)`` fills the host views, ``upload()`` queues
+    the one copy. On a CUDA device the host buffer is pinned, the copy is
+    ``non_blocking`` and an event is recorded behind it; ``write`` waits for
+    that event before it touches the buffer again, as the caching host
+    allocator behind ``to_device`` does. On the CPU the two buffers are one
+    and ``upload`` does nothing. ``fields``: name -> (shape, torch dtype)."""
+
+    def __init__(self, fields: dict, device):
+        self.device = torch.device(device)
+        cuda = self.device.type == "cuda"
+        spans, at = {}, 0
+        for name, (shape, dtype) in fields.items():
+            n = math.prod(shape) * dtype.itemsize
+            spans[name] = (at, n, tuple(shape), dtype)
+            at += -(-n // 8) * 8
+        self.host = torch.empty(max(at, 8), dtype=torch.uint8, pin_memory=cuda)
+        self.dev = torch.empty_like(self.host, device=self.device) if cuda else self.host
+        raw = self.host.numpy()
+        self.views, self._host = {}, {}
+        for name, (o, n, shape, dtype) in spans.items():
+            self.views[name] = self.dev[o:o + n].view(dtype).view(shape)
+            np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+            self._host[name] = raw[o:o + n].view(np_dtype).reshape(shape)
+        self._event = None
+
+    def write(self, **arrays) -> None:
+        """Copy each named array into its host view (cast to the view's
+        dtype); every field is written, or keeps the last window's values."""
+        if self._event is not None:
+            self._event.synchronize()  # the last copy from the buffer has completed
+            self._event = None
+        for name, value in arrays.items():
+            np.copyto(self._host[name], value, casting="unsafe")
+
+    def upload(self) -> None:
+        """Queue the copy of the whole host buffer to the device."""
+        if self.dev is self.host:
+            return
+        self.dev.copy_(self.host, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record(torch.cuda.current_stream(self.device))

@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from cmax_slam_tpu_torch import config, spline
-from cmax_slam_tpu_torch.backend import _WindowSolver
+from cmax_slam_tpu_torch.backend import WindowInputs, _WindowSolver
 from cmax_slam_tpu_torch.calib import EquirectCamera
 from cmax_slam_tpu_torch.ops import warp_pano
 
@@ -190,16 +190,26 @@ def test_the_reference_alpha_matches_the_port():
 
 # (d) -------------------------------------------------------------------------
 
+def _inputs(c) -> WindowInputs:
+    """The window's raw inputs, its bearings given as a LUT of their own
+    (every event a row)."""
+    return WindowInputs(
+        idx=np.arange(N, dtype=np.int32), valid=np.ones(N, bool), is_old=c["ts"] < 0.1,
+        batch_rel=ref.batch_mid_times(c["ts"], BATCH).astype(np.float32), knots=c["knots"],
+        free=c["free"].astype(np.float32), fov_rel=np.array([0.0, 0.05], np.float32))
+
+
 def _solver(restarts: int, c):
+    """The window program on the whole panorama, launched once: it computes
+    the window's alpha itself, which must be the objective's of (c)."""
     cfg = config.replace(config.SystemConfig(), **{"backend.trajectory.spline_degree": 3,
                                                    "backend.trajectory.dt_knots": DT}).backend
     win, _ = _pano_objective(c)
-    lut = torch.as_tensor(c["bearings"][:64])
-    fov = np.array([0.0, 0.05], np.float32)
-    solver = _WindowSolver(cfg, PANO, 4, restarts, 0.0, lut, win, len(fov), None)
+    lut = torch.as_tensor(c["bearings"])
+    solver = _WindowSolver(cfg, PANO, 4, restarts, 0.0, lut, _inputs(c), None)
     ig = torch.as_tensor(c["ig"])
-    result = solver.solve(win, fov, dict(alpha=win.alpha), ig,
-                          torch.zeros(ig.shape, dtype=torch.int32))
+    result = solver.solve(_inputs(c), ig, torch.zeros(ig.shape, dtype=torch.int32))
+    assert torch.equal(solver.win.alpha, win.alpha)
     return solver, result.fetch()
 
 
@@ -250,10 +260,9 @@ def test_restart_loop_nodes_are_named_apart(restarts, want):
     (utils.metrics.loop_split) splits its device time from the first
     solve's."""
     c = _case()
-    win, _ = _pano_objective(c)
     cfg = config.replace(config.SystemConfig(), **{"backend.trajectory.spline_degree": 3}).backend
-    solver = _WindowSolver(cfg, PANO, 4, restarts, 0.0, torch.as_tensor(c["bearings"][:64]), win,
-                           2, None)
+    solver = _WindowSolver(cfg, PANO, 4, restarts, 0.0, torch.as_tensor(c["bearings"]),
+                           _inputs(c), None)
     names = _Names()
     solver.program.build_fn(names)
     assert names.paths == want

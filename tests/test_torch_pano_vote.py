@@ -36,7 +36,7 @@ from cmax_slam_tpu.config import (
     IMAGE_GRADIENT_MAGNITUDE_CONTRAST, MEAN_SQUARE_CONTRAST, VARIANCE_CONTRAST)
 from cmax_slam_tpu.ops import warp_pano as jwarp_pano
 from cmax_slam_tpu_torch import calib, spline
-from cmax_slam_tpu_torch.config import ijrr_config
+from cmax_slam_tpu_torch.config import ijrr_config, replace
 from cmax_slam_tpu_torch.ops import cuda_iwe, cuda_pano_vote, warp_pano
 
 from test_crop_solver import _plan_for_test, _smooth_map
@@ -158,26 +158,30 @@ def test_hoisted_basis_is_the_one_evaluate_rotmats_computes(order):
 
 @pytest.mark.parametrize("crop", [True, False])
 def test_window_program_loads_the_basis_per_window(crop):
-    """The window program computes each window's basis at load into its own
-    buffers, which its objective reads (a captured graph reads them there)."""
-    from cmax_slam_tpu_torch.backend import _WindowSolver
+    """The window program computes each window's basis, at each launch,
+    into its own buffers, which its objective reads (a captured graph reads
+    them there): the window's raw inputs go in (its bearings as a LUT of
+    its own, every event a row), the basis and the crop origin come out."""
+    from cmax_slam_tpu_torch.backend import WindowInputs, _WindowSolver
 
-    cfg = ijrr_config().backend
     order = 2
     rng = np.random.default_rng(5)
     _, _, win, pano = _windows(rng, order)
     K, B = win.knots.shape[0], win.batch_times.shape[0]
-    lut = torch.zeros((4, 3))
-    solver = _WindowSolver(cfg, pano, order, 0, 0.0, lut, win, 3, (64, 96) if crop else None)
-    consts = {"alpha": torch.tensor(0.2)}
-    if crop:
-        consts |= {"crop": torch.tensor([5, 7, 0, 64, 0, 96]), "a_crop": torch.zeros(64, 96),
-                   "mask": torch.ones(64, 96), "out_s1": torch.tensor(0.0),
-                   "out_s2": torch.tensor(0.0)}
+    cfg = replace(ijrr_config(), **{"backend.trajectory.dt_knots": win.dt_knots,
+                                    "backend.optim.max_line_searches": 1}).backend
+    lut = win.bearings.T.contiguous()
+    inputs = WindowInputs(
+        idx=np.arange(lut.shape[0], dtype=np.int32), valid=win.weights.numpy() > 0,
+        is_old=win.is_old.numpy(), batch_rel=win.batch_times.numpy(), knots=win.knots.numpy(),
+        free=win.free_mask.numpy(), fov_rel=np.zeros(3, np.float32),
+        crop=np.array([5, 7, 0, 64, 0, 96]) if crop else None)
+    solver = _WindowSolver(cfg, pano, order, 0, 0.0, lut, inputs, (64, 96) if crop else None)
     for shift in (0.0, 0.07):  # two windows: the second's batches sit later
         w = win._replace(batch_times=win.batch_times + shift)
-        solver.load(w, np.zeros(3), consts, torch.zeros(HP, WP),
-                    torch.zeros(HP, WP, dtype=torch.int32))
+        with torch.no_grad():
+            solver.solve(inputs._replace(batch_rel=w.batch_times.numpy()), torch.zeros(HP, WP),
+                         torch.zeros(HP, WP, dtype=torch.int32)).fetch()
         seg, coeff = spline.segment_basis(w.batch_times, w.t0, w.dt_knots, K, order)
         assert solver.basis[0].shape == (B,) and torch.equal(solver.basis[0], seg)
         assert torch.equal(solver.basis[1], coeff)
